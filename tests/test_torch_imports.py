@@ -1,0 +1,51 @@
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
+imports JAX or anything of the reference package ``repro``."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+
+
+def test_no_source_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+                 for f in files for m in FORBIDDEN.finditer(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_imports_and_runs_without_jax():
+    """Every module imports, and a tiny forward runs, with JAX unimportable."""
+    code = textwrap.dedent("""
+        import importlib, pathlib, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        port = pathlib.Path(sys.argv[1])
+        names = [".".join(("repro_torch",) + f.relative_to(port).with_suffix("").parts)
+                 .removesuffix(".__init__") for f in sorted(port.rglob("*.py"))]
+        for name in names:
+            importlib.import_module(name)
+        from repro_torch.configs import get_config
+        from repro_torch.models.model import Model
+        cfg = get_config("qwen2.5-3b").reduced()
+        model = Model(cfg)
+        params, _ = model.init(torch.Generator().manual_seed(0), device="cpu")
+        logits, _, _ = model.forward(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+        assert logits.shape == (1, 4, cfg.padded_vocab) and torch.isfinite(logits).all()
+        assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
+                       if sys.modules[m] is not None)
+        print(len(names))
+    """)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code, str(PORT)], capture_output=True, text=True,
+                          env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20

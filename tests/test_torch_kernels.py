@@ -1,0 +1,196 @@
+"""The port's attention paths against the reference's, and the Hopper kernel
+against its plain version.
+
+CPU tests: the plain path (``ops.attention`` and ``decode_attention``) is
+held against the reference oracle and the reference's Pallas kernel run in
+interpret mode, on the shapes and masks of ``tests/test_kernels.py``, at that
+file's tolerances (2e-5 fp32, 2e-2 bf16). Inputs are drawn once with numpy
+and handed to both packages.
+
+Card tests (marker ``gpu``): the CUDA kernel against the plain version on
+the card. They skip where no CUDA device is present.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+
+try:
+    import jax.numpy as jnp
+
+    from repro.kernels import ops as ref_ops
+    from repro.kernels import ref as jref
+    from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
+except ModuleNotFoundError:
+    # the machine with the card has no JAX; only the gpu-marked tests, which
+    # need no reference, run there (``pytest --noconftest -m gpu``)
+    jnp = ref_ops = jref = pallas_flash_attention = None
+
+ATTN_SHAPES = [
+    # (batch, q heads, kv heads, seq, head dim), as tests/test_kernels.py
+    (1, 2, 2, 128, 64),
+    (2, 4, 2, 256, 64),    # GQA 2:1
+    (1, 8, 1, 256, 128),   # MQA
+    (2, 2, 2, 384, 32),    # seq not a multiple of block
+]
+MASKS = [(True, 0), (True, 64), (False, 0)]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _qkv_np(seed, b, hq, hkv, s, d, dv=None):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, s, d), dtype=np.float32)
+    k = rng.standard_normal((b, hkv, s, d), dtype=np.float32)
+    v = rng.standard_normal((b, hkv, s, dv or d), dtype=np.float32)
+    return q, k, v
+
+
+def _to_jax(arrs, dtype):
+    return [jnp.asarray(a).astype(dtype) for a in arrs]
+
+
+def _to_torch(arrs, dtype, device="cpu"):
+    return [torch.from_numpy(a).to(device=device, dtype=getattr(torch, dtype)) for a in arrs]
+
+
+def _np(t):
+    return t.float().cpu().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_attention_matches_reference_oracle(shape, causal, window, dtype):
+    arrs = _qkv_np(sum(shape) + window + causal, *shape)
+    want = jref.attention_ref(*_to_jax(arrs, dtype), causal=causal, window=window)
+    got = ops.attention(*_to_torch(arrs, dtype), causal=causal, window=window)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_attention_matches_pallas_interpret():
+    """The reference kernel itself, run as the reference's tests run it."""
+    arrs = _qkv_np(11, 2, 4, 2, 256, 64)
+    want = pallas_flash_attention(*_to_jax(arrs, "float32"), causal=True, window=64,
+                                  interpret=True)
+    got = ops.attention(*_to_torch(arrs, "float32"), causal=True, window=64)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5, atol=2e-5)
+    assert fa.flash_attention.launches == 0   # the CPU path launches nothing
+
+
+def test_chunked_attention_matches_reference():
+    arrs = _qkv_np(3, 1, 2, 2, 512, 32)
+    want = ref_ops._xla_attention_chunked(*_to_jax(arrs, "float32"), causal=True,
+                                          window=100, scale=None, q_chunk=128)
+    got = ops._attention_chunked(*_to_torch(arrs, "float32"), causal=True, window=100,
+                                 scale=None, q_chunk=128)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_attention_logit_cap_and_short_queries():
+    """The oracle's logit cap and its end alignment when Sq < Sk."""
+    q, k, v = _qkv_np(5, 1, 4, 2, 64, 32)
+    q = q[:, :, -16:]
+    want = jref.attention_ref(*_to_jax((q, k, v), "float32"), causal=True, window=24,
+                              logit_cap=5.0, scale=0.3)
+    got = ref.attention_ref(*_to_torch((q, k, v), "float32"), causal=True, window=24,
+                            logit_cap=5.0, scale=0.3)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_decode_attention_matches_reference():
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((2, 4, 1, 64), dtype=np.float32)
+    kc = rng.standard_normal((2, 2, 40, 64), dtype=np.float32)
+    vc = rng.standard_normal((2, 2, 40, 64), dtype=np.float32)
+    mask = np.arange(40)[None, :] < np.array([[17], [40]])
+    want = ref_ops.decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                                    jnp.asarray(mask))
+    got = ops.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                               torch.from_numpy(vc), torch.from_numpy(mask))
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_dispatch_follows_the_device():
+    q, k, v = _to_torch(_qkv_np(1, 1, 2, 2, 64, 32), "float32")
+    auto = ops.attention(q, k, v)
+    assert torch.equal(auto, ops.attention(q, k, v, impl="torch"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.attention(q, k, v, impl="cuda")
+    with pytest.raises(ValueError, match="unknown"):
+        ops.attention(q, k, v, impl="xla")
+
+
+@pytest.mark.parametrize("bad", ["dtype", "contiguous", "sq_ne_sk", "head_dim", "heads"])
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q, k, v = _to_torch(_qkv_np(1, 1, 4, 2, 64, 32), "float32")
+    if bad == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "contiguous":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "sq_ne_sk":
+        q = q[:, :, :32].contiguous()
+    elif bad == "head_dim":
+        q, k, v = _to_torch(_qkv_np(1, 1, 4, 2, 8, 288), "float32")
+    elif bad == "heads":
+        q = torch.zeros(1, 3, 64, 32)
+    with pytest.raises((ValueError, TypeError)):
+        fa._check(q, k, v)
+
+
+# --- on the card ------------------------------------------------------------
+
+GPU_CASES = [
+    # (b, hq, hkv, s, d, dv, causal, window, dtype)
+    (1, 16, 2, 2048, 128, 128, True, 0, "bfloat16"),   # qwen2.5-3b prefill
+    (1, 16, 2, 2048, 128, 128, True, 0, "float32"),
+    (1, 16, 2, 2048, 128, 128, True, 256, "float32"),
+    (1, 16, 2, 2048, 128, 128, False, 0, "float32"),
+    (1, 16, 2, 1000, 128, 128, True, 0, "float32"),    # ragged S
+    (1, 16, 2, 512, 192, 128, True, 0, "float32"),     # Dv != D (MLA)
+    (2, 4, 2, 384, 32, 32, True, 64, "float32"),
+    (2, 8, 8, 130, 256, 256, False, 0, "bfloat16"),   # tensor cores, widest
+    (1, 16, 2, 1000, 128, 128, True, 256, "bfloat16"),
+    (1, 16, 2, 512, 192, 128, True, 0, "bfloat16"),
+    (2, 4, 2, 200, 72, 40, True, 0, "bfloat16"),      # D % 16 != 0: CUDA cores
+    (2, 16, 2, 512, 128, 128, True, 0, "bfloat16"),   # chip_smoke's (2, 512) prefill
+    (1, 16, 2, 16, 128, 128, True, 0, "float32"),     # chip_smoke's 16-token forward
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_CASES)
+def test_kernel_matches_plain_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b, hq, hkv, s, d, dv, causal, window, dtype = case
+    q, k, v = _to_torch(_qkv_np(s + d, b, hq, hkv, s, d, dv), dtype, device="cuda")
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_kernel_on_unaligned_bf16_views():
+    """A contiguous view that is not 16-byte aligned takes the CUDA-core
+    variant and agrees all the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    def unaligned(t):   # the same values, 2 bytes past an aligned start
+        view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+        return view.copy_(t)
+
+    q, k, v = (unaligned(t) for t in _to_torch(_qkv_np(9, 1, 4, 2, 256, 64), "bfloat16",
+                                               device="cuda"))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL["bfloat16"], atol=TOL["bfloat16"])

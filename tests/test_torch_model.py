@@ -1,0 +1,140 @@
+"""The port's dense model against the reference on reduced qwen2.5-3b in
+fp32: train logits, prefill logits and cache, loss, and decode steps, from
+the same converted parameters; plus the reference's own consistency checks
+(``tests/test_models.py``) run on the port.
+
+Tolerance 1e-4 against the reference: two layers of the same fp32 arithmetic
+summed in another order, over logits of magnitude ~10. The decode-vs-forward
+bound 2e-3 is the reference's own.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models.model import Model as RefModel
+from repro_torch.configs import get_config
+from repro_torch.models.model import Model
+from repro_torch.utils.params import from_jax
+
+TOL = 1e-4
+T = 16
+
+
+def _pair(arch="qwen2.5-3b", **changes):
+    changes = {"dtype": "float32", **changes}
+    ref_model = RefModel(dataclasses.replace(ref_get_config(arch).reduced(), **changes))
+    model = Model(dataclasses.replace(get_config(arch).reduced(), **changes))
+    ref_params, _ = ref_model.init(jax.random.PRNGKey(1))
+    return ref_model, ref_params, model, from_jax(ref_params, device="cpu")
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    ref_model, ref_params, model, params = _pair()
+    toks = np.random.default_rng(0).integers(0, model.cfg.vocab_size, (2, T + 1))
+    return ref_model, ref_params, model, params, toks.astype(np.int32)
+
+
+def test_forward_train_and_prefill_match_reference(qwen):
+    ref_model, ref_params, model, params, toks = qwen
+    batch_j = {"tokens": jnp.asarray(toks[:, :T])}
+    batch_t = {"tokens": torch.from_numpy(toks[:, :T])}
+    want, _, _ = jax.jit(lambda p, b: ref_model.forward(p, b, mode="train"))(ref_params,
+                                                                              batch_j)
+    got, aux, cache = model.forward(params, batch_t, mode="train")
+    assert cache is None and float(aux) == 0.0
+    _close(got[..., :model.cfg.vocab_size], want[..., :model.cfg.vocab_size])
+    assert torch.all(got[..., model.cfg.vocab_size:] == -1e30)
+
+    want_last, _, want_cache = jax.jit(
+        lambda p, b: ref_model.forward(p, b, mode="prefill"))(ref_params, batch_j)
+    got_last, _, got_cache = model.forward(params, batch_t, mode="prefill")
+    _close(got_last[:, :model.cfg.vocab_size], want_last[:, :model.cfg.vocab_size])
+    for g, w in zip(got_cache["kv"], want_cache["kv"]):
+        assert tuple(g.shape) == tuple(w.shape)        # (L, B, Hkv, S, hd)
+        _close(g, w)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "qwen2-7b", "yi-9b"])
+def test_forward_matches_reference_other_dense(arch):
+    """The other dense configs: partial rotary (chatglm3), no QKV bias (yi),
+    untied embeddings."""
+    ref_model, ref_params, model, params = _pair(arch)
+    toks = np.random.default_rng(3).integers(0, model.cfg.vocab_size, (1, 8)).astype(np.int32)
+    want, _, _ = jax.jit(lambda p, t: ref_model.forward(p, {"tokens": t}))(
+        ref_params, jnp.asarray(toks))
+    got, _, _ = model.forward(params, {"tokens": torch.from_numpy(toks)})
+    v = model.cfg.vocab_size
+    _close(got[..., :v], want[..., :v])
+
+
+def test_loss_matches_reference(qwen):
+    ref_model, ref_params, model, params, toks = qwen
+    want, want_nll = ref_model.loss_fn(ref_params, {"tokens": jnp.asarray(toks)}, remat=False)
+    got, got_nll = model.loss_fn(params, {"tokens": torch.from_numpy(toks)})
+    _close(got, want)
+    _close(got_nll, want_nll)
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["model", "int8"])
+def test_decode_steps_match_reference(kv_cache_dtype):
+    ref_model, ref_params, model, params = _pair(kv_cache_dtype=kv_cache_dtype)
+    toks = np.random.default_rng(1).integers(0, model.cfg.vocab_size, (2, T)).astype(np.int32)
+    jcache, _ = ref_model.init_cache(2, T + 2)
+    tcache, _ = model.init_cache(2, T + 2, device="cpu")
+    step = jax.jit(ref_model.decode_step)
+    for t in range(T):
+        want, jcache = step(ref_params, jnp.asarray(toks[:, t]), jcache)
+        got, tcache = model.decode_step(params, torch.from_numpy(toks[:, t]), tcache)
+        _close(got[:, :model.cfg.vocab_size], want[:, :model.cfg.vocab_size])
+    assert int(tcache["pos"]) == T
+    for name in jcache:
+        assert tuple(tcache[name].shape) == tuple(jcache[name].shape), name
+
+
+def test_decode_matches_forward(qwen):
+    """Sequential decode logits == full-forward logits at every position."""
+    _, _, model, params, toks = qwen
+    tokens = torch.from_numpy(toks[:1, :T])
+    fwd, _, _ = model.forward(params, {"tokens": tokens}, mode="train")
+    cache, _ = model.init_cache(1, 32, device="cpu")
+    v = model.cfg.vocab_size
+    errs = []
+    for t in range(T):
+        logits, cache = model.decode_step(params, tokens[:, t], cache)
+        errs.append(float(torch.max(torch.abs(logits[0, :v] - fwd[0, t, :v]))))
+    assert max(errs) < 2e-3, f"max dec-vs-fwd err {max(errs)}"
+
+
+def test_sliding_window_decode_matches_windowed_forward():
+    """Ring-buffer sliding decode == full forward with the same window."""
+    cfg = dataclasses.replace(get_config("yi-9b").reduced(), dtype="float32", window=8)
+    model = Model(cfg)
+    params, _ = model.init(torch.Generator().manual_seed(2), device="cpu")
+    steps = 20
+    tokens = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (1, steps)).astype(np.int32))
+    fwd, _, _ = model.forward(params, {"tokens": tokens}, mode="train", window=8)
+    cache, _ = model.init_cache(1, 8, device="cpu")   # ring buffer of window size
+    for t in range(steps):
+        logits, cache = model.decode_step(params, tokens[:, t], cache, window=8)
+        err = float(torch.max(torch.abs(logits[0, :cfg.vocab_size]
+                                        - fwd[0, t, :cfg.vocab_size])))
+        assert err < 2e-3, f"pos {t}: err {err}"
+
+
+def test_window_follows_reference():
+    ref_model, _, model, _ = _pair()
+    for kind in ("train", "prefill", "decode", "long"):
+        assert model._window(kind) == ref_model._window(kind)

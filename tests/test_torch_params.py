@@ -1,0 +1,90 @@
+"""The port's parameter tree equals the reference's: the converter maps the
+reference tree leaf by leaf, and the port's own ``init`` builds the same
+paths, shapes and dtypes, so ``count_params`` (and with it the serving
+engine's FLOP charge) agrees exactly."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models.model import Model as RefModel
+from repro.utils.params import count_params as ref_count_params
+from repro.utils.params import tree_bytes as ref_tree_bytes
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models.model import Model
+from repro_torch.utils.params import count_params, from_jax, tree_bytes
+
+DENSE_ARCHS = [a for a in ARCH_IDS if get_config(a).family == "dense"]
+OTHER_ARCHS = [a for a in ARCH_IDS if get_config(a).family != "dense"]
+
+
+def _leaves(tree, prefix=""):
+    """{path: leaf} of a nested dict tree."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.fixture(scope="module")
+def qwen_ref_params():
+    cfg = ref_get_config("qwen2.5-3b").reduced()
+    params, _ = RefModel(cfg).init(jax.random.PRNGKey(0))
+    return cfg, params
+
+
+def test_from_jax_maps_leaf_for_leaf(qwen_ref_params):
+    _, ref_params = qwen_ref_params
+    params = from_jax(ref_params, device="cpu")
+    ref_leaves, leaves = _leaves(ref_params), _leaves(params)
+    assert sorted(leaves) == sorted(ref_leaves)
+    for path, ref_leaf in ref_leaves.items():
+        leaf = leaves[path]
+        assert tuple(leaf.shape) == tuple(ref_leaf.shape), path
+        assert str(leaf.dtype).removeprefix("torch.") == str(ref_leaf.dtype), path
+        # bf16 passes through f32 exactly
+        np.testing.assert_array_equal(leaf.float().numpy(),
+                                      np.asarray(ref_leaf, np.float32), err_msg=path)
+    assert count_params(params) == ref_count_params(ref_params)
+    assert tree_bytes(params) == ref_tree_bytes(ref_params)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_init_tree_matches_reference(arch):
+    """Same paths, shapes, dtypes and specs as the reference ``init``."""
+    cfg = get_config(arch).reduced()
+    ref_params, ref_specs = RefModel(ref_get_config(arch).reduced()).init(abstract=True)
+    params, specs = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    ref_leaves, leaves = _leaves(ref_params), _leaves(params)
+    assert sorted(leaves) == sorted(ref_leaves)
+    for path, ref_leaf in ref_leaves.items():
+        assert tuple(leaves[path].shape) == tuple(ref_leaf.shape), path
+        assert str(leaves[path].dtype).removeprefix("torch.") == str(ref_leaf.dtype), path
+    assert _leaves(specs) == _leaves(ref_specs)
+    assert Model(cfg).param_count() == RefModel(ref_get_config(arch).reduced()).param_count()
+    assert count_params(params) == Model(cfg).param_count()
+
+
+def test_full_width_param_count_matches():
+    """The full-size main-path model, counted on the meta device."""
+    assert (Model(get_config("qwen2.5-3b")).param_count()
+            == RefModel(ref_get_config("qwen2.5-3b")).param_count())
+
+
+def test_init_is_seeded():
+    cfg = get_config("qwen2.5-3b").reduced()
+    a, _ = Model(cfg).init(torch.Generator().manual_seed(3), device="cpu")
+    b, _ = Model(cfg).init(torch.Generator().manual_seed(3), device="cpu")
+    for path, leaf in _leaves(a).items():
+        assert torch.equal(leaf, _leaves(b)[path]), path
+
+
+@pytest.mark.parametrize("arch", OTHER_ARCHS)
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(get_config(arch).reduced())

@@ -1,0 +1,65 @@
+"""The port's serving engine against the reference's on the same converted
+fp32 parameters: identical greedy tokens, identical node per request, and an
+identical metrics dict (the simulated clock, NSA scoring and FLOP charge are
+the same code and the same parameter count). Mirrors
+``tests/test_system.py``'s serving checks."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import get_config as ref_get_config
+from repro.core.cluster import make_paper_cluster as ref_make_paper_cluster
+from repro.models.model import Model as RefModel
+from repro.serving import Request as RefRequest
+from repro.serving import ServingEngine as RefServingEngine
+from repro_torch.configs import get_config
+from repro_torch.core.cluster import make_paper_cluster
+from repro_torch.launch import serve
+from repro_torch.serving import Request, ServingEngine
+from repro_torch.utils.params import from_jax
+
+
+def _requests(cls):
+    # two prompt lengths, so that the batcher forms several groups
+    return ([cls(i, np.arange(3, 11, dtype=np.int32), 6) for i in range(10)]
+            + [cls(10 + i, np.arange(5, 10, dtype=np.int32), 4) for i in range(3)])
+
+
+@pytest.fixture(scope="module")
+def served():
+    ref_cfg = dataclasses.replace(ref_get_config("qwen2.5-3b").reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(), dtype="float32")
+    ref_params, _ = RefModel(ref_cfg).init(jax.random.PRNGKey(5))
+    ref_reqs, reqs = _requests(RefRequest), _requests(Request)
+    ref_metrics = RefServingEngine(ref_cfg, ref_params, ref_make_paper_cluster(),
+                                   max_batch=4).serve(ref_reqs)
+    metrics = ServingEngine(cfg, from_jax(ref_params, device="cpu"), make_paper_cluster(),
+                            max_batch=4, device="cpu").serve(reqs)
+    return ref_reqs, ref_metrics, reqs, metrics
+
+
+def test_same_tokens_and_nodes(served):
+    ref_reqs, _, reqs, _ = served
+    for r_ref, r in zip(ref_reqs, reqs):
+        assert r.output.shape == (r.max_new_tokens,)
+        np.testing.assert_array_equal(r.output, r_ref.output)
+        assert r.node_id == r_ref.node_id
+        assert (r.ttft_ms, r.finish_ms) == (r_ref.ttft_ms, r_ref.finish_ms)
+
+
+def test_same_metrics(served):
+    _, ref_metrics, _, metrics = served
+    assert metrics == ref_metrics
+    assert metrics["num_requests"] == 13
+    assert len(metrics["requests_per_node"]) >= 2   # NSA spread the batches
+    assert metrics["tokens_per_s"] > 0
+
+
+def test_launcher_serves_on_cpu(capsys):
+    m = serve.main(["--device", "cpu", "--requests", "2", "--prompt-len", "3",
+                    "--new-tokens", "2", "--max-batch", "1"])
+    assert m["num_requests"] == 2
+    assert "tokens_per_s" in capsys.readouterr().out
