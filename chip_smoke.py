@@ -1,27 +1,33 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: ``python3 chip_smoke.py``.
 
-Drives the port's main path at the full width of qwen2.5-3b (36 layers,
-d_model 2048, 16 q heads / 2 kv heads, bf16, random weights from a seed):
-prefill through the hand-written Hopper flash-attention kernel, and greedy
-serving through the AMP4EC NSA scheduler. It builds every kernel of that
-path from the sources in the checkout, holds each against its plain PyTorch
-version on the card, times it beside its bound, its plain version and the
-closest PyTorch library call, and checks that the main path launched it.
+Drives the port's three paths at full width, with random weights from a
+seed: qwen2.5-3b (dense; 36 layers, d_model 2048, bf16) through the
+hand-written Hopper flash-attention kernel; mamba2-130m (SSM; 24 layers,
+d_model 768) through the SSD-scan kernel; recurrentgemma-9b (hybrid; 38
+layers, d_model 4096) through the RG-LRU-scan kernel and the flash kernel's
+local window. Each model is prefilled and served greedily through the AMP4EC
+NSA scheduler. The script builds every kernel from the sources in the
+checkout, holds each against its plain PyTorch version on the card, times it
+beside its bound, its plain version and the closest PyTorch library call,
+and checks that each path launched its kernels: every count is set to 0
+just before a path's prefill and read just after.
 
 Phases (any failure exits non-zero):
-  1. card name and power limit; build the kernels
+  1. card name and power limit; build the kernels (one nvcc each, together)
   2. each kernel against its plain version on the card
-  3. timing at the main-path shape (CUDA events)
-  4. full-width prefill: launches per call, finite logits
-  5. full-width fp32 prefill-vs-decode consistency (bound 2e-3)
-  6. serving: 8 requests through ServingEngine on the paper cluster
-  7. one JSON line of kernels, then the device line last
+  3. timing at the main-path shapes (CUDA events)
+  4-6. qwen2.5-3b: prefill (launches, finite logits, profile), fp32
+     prefill-vs-decode consistency (bound 2e-3), serving 8 requests
+  7-9. mamba2-130m: the same three
+  10-12. recurrentgemma-9b: the same three (the fp32 check at depth 5)
+  13. one JSON line of kernels, the card line, then the device line last
 
 Without a CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -40,6 +46,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cluster import make_paper_cluster  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
@@ -48,6 +56,14 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense tensor-core rate, bf16
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 MAIN = dict(b=1, hq=16, hkv=2, s=2048, d=128)   # qwen2.5-3b attention at S=2048
+# recurrentgemma-9b local attention at its (1, 4096) prefill
+HYBRID = dict(b=1, hq=16, hkv=1, s=4096, d=256, window=2048)
+# mamba2-130m SSD at its (2, 2048) prefill: (B, L, H, P, G, N, chunk)
+SSD_MAIN = dict(B=2, L=2048, H=24, P=64, G=1, N=128, chunk=256)
+RGLRU_MAIN = dict(B=1, L=4096, W=4096)           # recurrentgemma-9b RG-LRU prefill
+#: the kernels' wrappers, whose ``launches`` count their kernel launches
+KERNELS = {"flash_attention": fa.flash_attention, "ssd_scan": ss.ssd_scan,
+           "rglru_scan": rg.rglru_scan}
 
 
 def log(msg: str) -> None:
@@ -58,6 +74,31 @@ def card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def reset_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def build_all() -> None:
+    """Build the three libraries at once: one nvcc per source, in threads."""
+    libs = {"flash_attention": fa._lib, "ssd_scan": ss._lib, "rglru_scan": rg._lib}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(fn) for fn in libs.values()]:
+            fut.result()
+    log(f"  built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s of wall")
+    for name in libs:
+        seconds, ptxas = build.build_info(name)
+        log(f"  {name}: nvcc {seconds:.1f} s")
+        for line in ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas: {line.strip()}")
 
 
 def qkv(seed, b, hq, hkv, s, d, dv, dtype):
@@ -79,7 +120,19 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_kernels_vs_plain():
+def check(kernel: str, name: str, got, want, tol: float) -> dict:
+    """max |kernel - plain| over the outputs, asserted within ``tol``."""
+    err, close = 0.0, True
+    for g, w in zip(got, want):
+        err = max(err, float((g.float() - w.float()).abs().max()))
+        close &= torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
+    log(f"  {kernel} {name}: max|kernel-plain| = {err:.3e} (tolerance {tol:g}) "
+        f"{'ok' if close else 'FAIL'}")
+    assert close and math.isfinite(err), f"{kernel} disagrees: {name}"
+    return dict(case=name, max_abs_err=err, tol=tol)
+
+
+def flash_vs_plain():
     """Each case (name, shape, dtype, causal, window, tolerance): the kernel
     against the plain version on the same inputs -> max |kernel - plain|."""
     m = MAIN
@@ -103,6 +156,15 @@ def phase_kernels_vs_plain():
         ("bf16 D=192 Dv=128", dict(m, d=192, dv=128), torch.bfloat16, True, 0, 2e-2),
         ("bf16 D=72 Dv=40 (CUDA cores)", dict(m, d=72, dv=40), torch.bfloat16, True, 0, 2e-2),
     ]
+    # recurrentgemma-9b: D = 256, one kv head, window 2048, at its bf16
+    # prefill (S > window) and at the 16-token fp32 forward of phase 11
+    hy = dict(b=1, hq=16, hkv=1, s=HYBRID["s"], d=256, dv=256)
+    win = HYBRID["window"]
+    cases += [
+        ("hybrid bf16 (1,16,1,4096,256) window 2048", hy, torch.bfloat16, True, win, 2e-2),
+        ("hybrid fp32 (1,16,1,4096,256) window 2048", hy, torch.float32, True, win, 2e-5),
+        ("hybrid forward S=16 fp32 window 2048", dict(hy, s=16), torch.float32, True, win, 2e-5),
+    ]
     results = []
     for i, (name, shape, dtype, causal, window, tol) in enumerate(cases):
         q, k, v = qkv(SEED + i, **shape, dtype=dtype)
@@ -110,16 +172,82 @@ def phase_kernels_vs_plain():
         torch.cuda.synchronize()
         want = ref.attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        close = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-        log(f"  {name}: max|kernel-plain| = {err:.3e} (tolerance {tol:g}) "
-            f"{'ok' if close else 'FAIL'}")
-        assert close and math.isfinite(err), f"flash_attention disagrees: {name}"
-        results.append(dict(case=name, max_abs_err=err, tol=tol))
+        results.append(check("flash_attention", name, [got], [want], tol))
     return results
 
 
-def phase_timing(device_line: str):
+def ssd_inputs(seed, B, L, H, P, G, N, dtype=torch.bfloat16):
+    """x, B, C in ``dtype``; dt (a softplus) and a in fp32, as the model gives them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    x = (rn(B, L, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, L, H)) * 0.1
+    a = -torch.exp(rn(H) * 0.5)
+    return x, dt, a, (rn(B, L, G, N) * 0.3).to(dtype), (rn(B, L, G, N) * 0.3).to(dtype)
+
+
+def ssd_vs_plain():
+    """The SSD kernel against the sequential oracle: y and the final state."""
+    m = SSD_MAIN
+    shape = {k: m[k] for k in "BLHPGN"}
+    cases = [
+        ("main (2,2048,24,64,G1,N128,Q256) bf16 x/B/C", shape, m["chunk"], torch.bfloat16, 3e-2),
+        ("main shape fp32", shape, m["chunk"], torch.float32, 2e-4),
+        ("grouped G=2 fp32", dict(shape, L=512, G=2), m["chunk"], torch.float32, 2e-4),
+        ("single chunk L=256 fp32", dict(shape, L=256), m["chunk"], torch.float32, 2e-4),
+        # the 16-token fp32 forward of phase 8: chunk = min(256, L)
+        ("forward (1,16) fp32, chunk 16", dict(shape, B=1, L=16), 16, torch.float32, 2e-4),
+    ]
+    results = []
+    for i, (name, sh, chunk, dtype, tol) in enumerate(cases):
+        args = ssd_inputs(SEED + 100 + i, **sh, dtype=dtype)
+        got = ss.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ref.ssd_sequential(*args)
+        torch.cuda.synchronize()
+        results.append(check("ssd_scan", name, got, want, tol))
+    return results
+
+
+def rglru_inputs(seed, B, L, W, dtype=torch.float32):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.sigmoid(torch.randn((B, L, W), generator=g, device="cuda")).to(dtype)
+    return a, (torch.randn((B, L, W), generator=g, device="cuda") * 0.5).to(dtype)
+
+
+def rglru_vs_plain():
+    """The RG-LRU kernel against the plain log-depth scan."""
+    m = RGLRU_MAIN
+    cases = [
+        ("main (1,4096,4096) fp32", m, torch.float32, 2e-5),
+        ("main shape bf16 a and b", m, torch.bfloat16, 3e-2),
+        ("ragged L=1000 fp32", dict(m, L=1000), torch.float32, 2e-5),
+        ("L=1 fp32", dict(m, L=1), torch.float32, 2e-5),
+        # the 16-token fp32 forward of phase 11
+        ("forward (1,16,4096) fp32", dict(m, L=16), torch.float32, 2e-5),
+    ]
+    results = []
+    for i, (name, sh, dtype, tol) in enumerate(cases):
+        a, b = rglru_inputs(SEED + 200 + i, **sh, dtype=dtype)
+        got = rg.rglru_scan(a, b)
+        torch.cuda.synchronize()
+        results.append(check("rglru_scan", name, [got], [ref.rglru_ref(a, b)], tol))
+    return results
+
+
+def bound(flops: float, nbytes: float, peak_flops: float):
+    """(bound ms, what bounds it): the larger of operations over the peak for
+    their type and bytes over the memory rate."""
+    flop_ms, byte_ms = flops / peak_flops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max((flop_ms, "operations"), (byte_ms, "bytes"))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def flash_timing(device_line: str):
+    """The main (qwen2.5-3b) shape and the hybrid (recurrentgemma-9b) shape."""
     m = MAIN
     q, k, v = qkv(SEED, **m, dv=m["d"], dtype=torch.bfloat16)
     kernel_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), iters=20)
@@ -136,26 +264,93 @@ def phase_timing(device_line: str):
     # pairs per head, each 2*D FLOPs for QK^T and 2*Dv for PV
     pairs = m["s"] * (m["s"] + 1) / 2
     flops = 2.0 * m["b"] * m["hq"] * pairs * (m["d"] + m["d"])
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + q.numel() * 2
-    flop_ms, byte_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms, bound_by = max((flop_ms, "operations"), (byte_ms, "bytes"))
+    nb = nbytes(q, k, v) + q.numel() * 2
+    bound_ms, bound_by = bound(flops, nb, PEAK_BF16_FLOPS)
     log(f"  [{device_line}] flash_attention bf16 (1,16,2048,128) causal: kernel "
         f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
+        f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, {nb / 1e6:.2f} MB); "
         f"kernel at {flops / kernel_ms / 1e9:.1f} TFLOP/s = "
         f"{100 * bound_ms / kernel_ms:.2f}% of the bf16 roofline, "
         f"{flops / core_ms / 1e9:.1f} TFLOP/s on the CUDA-core variant ({core_ms:.4f} ms, "
         f"{100 * flops / core_ms / 1e9 / (PEAK_FP32_FLOPS / 1e12):.1f}% of the fp32 peak)")
+
+    h = HYBRID
+    q, k, v = qkv(SEED + 1, h["b"], h["hq"], h["hkv"], h["s"], h["d"], h["d"], torch.bfloat16)
+    w = h["window"]
+    hy_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=w), iters=10)
+    hy_plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True, window=w), iters=3)
+    kr = ref.repeat_kv(k, h["hq"])
+    vr = ref.repeat_kv(v, h["hq"])
+    # SDPA has no sliding-window flag: the window goes in as a boolean mask
+    pos = torch.arange(h["s"], device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
+    hy_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kr, vr, attn_mask=mask), iters=10)
+    # key-query pairs the window leaves: min(i + 1, window) for query i
+    pairs = float(torch.clamp(pos + 1, max=w).sum())
+    hy_flops = 2.0 * h["b"] * h["hq"] * pairs * (h["d"] + h["d"])
+    hy_bytes = nbytes(q, k, v) + q.numel() * 2
+    hy_bound, hy_by = bound(hy_flops, hy_bytes, PEAK_BF16_FLOPS)
+    log(f"  [{device_line}] flash_attention bf16 (1,16,1,4096,256) window 2048: kernel "
+        f"{hy_ms:.4f} ms, plain {hy_plain:.4f} ms, SDPA with a mask {hy_lib:.4f} ms, bound "
+        f"{hy_bound:.4f} ms ({hy_by}: {hy_flops / 1e9:.2f} GFLOP, {hy_bytes / 1e6:.2f} MB); "
+        f"kernel at {hy_flops / hy_ms / 1e9:.1f} TFLOP/s = "
+        f"{100 * hy_bound / hy_ms:.2f}% of the bf16 roofline")
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, cuda_core_ms=core_ms)
+                bound_by=bound_by, cuda_core_ms=core_ms,
+                hybrid=dict(ms=hy_ms, plain_ms=hy_plain, library_ms=hy_lib, bound_ms=hy_bound,
+                            bound_by=hy_by))
 
 
-def phase_prefill(model, params, device_line: str) -> int:
+def ssd_timing(device_line: str):
+    m = SSD_MAIN
+    B, L, H, P, G, N, Q = (m[k] for k in ("B", "L", "H", "P", "G", "N", "chunk"))
+    args = ssd_inputs(SEED, B, L, H, P, G, N, dtype=torch.bfloat16)
+    kernel_ms = cuda_ms(lambda: ss.ssd_scan(*args, chunk=Q), iters=10)
+    plain_ms = cuda_ms(lambda: ref.ssd_chunked_ref(*args, Q), iters=3)
+    # work the function needs per chunk: C B^T over the causal triangle once
+    # per (batch, group), and per (batch, head) the gate times x dt over the
+    # triangle, the carried state's term C h^T and the state update
+    nc, tri = L // Q, Q * (Q + 1) / 2
+    flops = (B * G * nc * tri * N * 2.0
+             + B * H * nc * (tri * P * 2.0 + 2 * Q * N * P * 2.0))
+    y_bytes = args[0].numel() * args[0].element_size()
+    nb = nbytes(*args) + y_bytes + B * H * P * N * 4
+    bound_ms, bound_by = bound(flops, nb, PEAK_BF16_FLOPS)
+    log(f"  [{device_line}] ssd_scan (2,2048,24,64,G1,N128,Q256) bf16 x/B/C, fp32 dt/a: "
+        f"kernel {kernel_ms:.4f} ms, plain (chunked) {plain_ms:.4f} ms, library: none, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP at the bf16 rate, "
+        f"{nb / 1e6:.2f} MB); {flops / kernel_ms / 1e9:.2f} TFLOP/s, "
+        f"{100 * bound_ms / kernel_ms:.2f}% of the roofline; "
+        f"{B * H * -(-P // 32)} blocks on 132 SMs")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def rglru_timing(device_line: str):
+    m = RGLRU_MAIN
+    a, b = rglru_inputs(SEED, **m)
+    kernel_ms = cuda_ms(lambda: rg.rglru_scan(a, b), iters=10)
+    plain_ms = cuda_ms(lambda: ref.rglru_ref(a, b), iters=3)
+    flops = 2.0 * a.numel()                   # one multiply-add per element
+    nb = nbytes(a, b) + b.numel() * b.element_size()
+    bound_ms, bound_by = bound(flops, nb, PEAK_FP32_FLOPS)
+    log(f"  [{device_line}] rglru_scan (1,4096,4096) fp32: kernel {kernel_ms:.4f} ms, plain "
+        f"(log-depth scan) {plain_ms:.4f} ms, library: none, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nb / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP); "
+        f"{nb / kernel_ms / 1e6:.1f} GB/s, {100 * bound_ms / kernel_ms:.2f}% of the roofline")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_prefill(model, params, batch: int, seq: int, device_line: str) -> dict:
+    """Two prefills from zeroed counts; returns the launches of both, checked
+    against one launch of each kernel per layer that runs it."""
     cfg = model.cfg
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 512), generator=g, device="cuda",
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g, device="cuda",
                            dtype=torch.int32)
-    fa.flash_attention.launches = 0
+    reset_counts()
     times = []
     with torch.no_grad():
         for _ in range(2):
@@ -164,18 +359,66 @@ def phase_prefill(model, params, device_line: str) -> int:
             logits, _, cache = model.forward(params, {"tokens": tokens}, mode="prefill")
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-    launches = fa.flash_attention.launches
-    assert launches == 2 * cfg.num_layers, f"{launches} flash launches in 2 prefills"
-    assert logits.shape == (2, cfg.padded_vocab)
+    launches = read_counts()
+    expected = expected_launches(model)
+    assert launches == {k: 2 * n for k, n in expected.items()}, (launches, expected)
+    assert logits.shape == (batch, cfg.padded_vocab)
     assert bool(torch.isfinite(logits[:, :cfg.vocab_size].float()).all()), "non-finite logits"
-    k, v = cache["kv"]
-    assert k.shape == (cfg.num_layers, 2, cfg.num_kv_heads, 512, cfg.head_dim_) == v.shape
-    log(f"  prefill (2, 512): {launches // 2} flash launches per call; "
-        f"[{device_line}] wall {times[0]:.4f} s first call, {times[1]:.4f} s second")
+    shapes = {path: tuple(t.shape) for path, t in leaves(cache).items()}
+    want = reference_cache_shapes(model, batch, seq)
+    assert shapes == want, (shapes, want)
+    log(f"  prefill ({batch}, {seq}): launches per call "
+        f"{ {k: n // 2 for k, n in launches.items()} }; cache {shapes}")
+    log(f"  [{device_line}] wall {times[0]:.4f} s first call, {times[1]:.4f} s second")
     with torch.no_grad():
         profile_call(lambda: model.forward(params, {"tokens": tokens}, mode="prefill"),
-                     "one prefill (2, 512)", device_line)
-    return launches
+                     f"one prefill ({batch}, {seq})", device_line)
+    return dict(launches=launches, wall_s=times)
+
+
+def expected_launches(model) -> dict:
+    """One launch per layer whose mixer runs the kernel."""
+    cfg = model.cfg
+    kinds = ([cfg.family] * cfg.num_layers if cfg.family != "hybrid"
+             else [k for _ in range(model._n_super) for k in model._pattern]
+             + [model._tail_kind(t) for t in range(model._n_tail)])
+    per_kind = {"dense": "flash_attention", "attn": "flash_attention", "ssm": "ssd_scan",
+                "rec": "rglru_scan"}
+    return {name: sum(per_kind[k] == name for k in kinds) for name in KERNELS}
+
+
+def leaves(tree, path="") -> dict:
+    if isinstance(tree, dict):
+        return {p: v for k in tree for p, v in leaves(tree[k], f"{path}/{k}").items()}
+    if isinstance(tree, (tuple, list)):
+        return {p: v for i, t in enumerate(tree) for p, v in leaves(t, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+def reference_cache_shapes(model, batch: int, seq: int) -> dict:
+    """The reference's prefill cache shapes (``repro.models.model.forward``)."""
+    cfg = model.cfg
+    if cfg.family == "dense":
+        kv = (cfg.num_layers, batch, cfg.num_kv_heads, seq, cfg.head_dim_)
+        return {"/kv/0": kv, "/kv/1": kv}
+    if cfg.family == "ssm":
+        d_inner = cfg.ssm_expand * cfg.d_model
+        nconv = d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        return {"/ssm_states/conv": (cfg.num_layers, batch, cfg.ssm_conv - 1, nconv),
+                "/ssm_states/ssm": (cfg.num_layers, batch, d_inner // cfg.ssm_head_dim,
+                                    cfg.ssm_head_dim, cfg.ssm_state)}
+    W = cfg.lru_width or cfg.d_model
+    kv = (batch, cfg.num_kv_heads, cfg.local_window, cfg.head_dim_)
+    rec = {"conv": (batch, 3, W), "h": (batch, W)}
+    out = {}
+    for j, kind in enumerate(model._pattern):
+        for name, shape in (rec.items() if kind == "rec" else (("0", kv), ("1", kv))):
+            out[f"/super/b{j}/{name}"] = (model._n_super,) + shape
+    for t in range(model._n_tail):
+        for name, shape in (rec.items() if model._tail_kind(t) == "rec"
+                            else (("0", kv), ("1", kv))):
+            out[f"/tail{t}/{name}"] = shape
+    return out
 
 
 def profile_call(fn, label: str, device_line: str) -> None:
@@ -202,6 +445,7 @@ def profile_call(fn, label: str, device_line: str) -> None:
 
 
 def phase_consistency(cfg) -> float:
+    """fp32 train forward (through the kernels) against 16 decode steps."""
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model = Model(cfg32)
     params, _ = model.init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
@@ -210,24 +454,28 @@ def phase_consistency(cfg) -> float:
                            dtype=torch.int32)
     v = cfg.vocab_size
     with torch.no_grad():
-        before = fa.flash_attention.launches
+        reset_counts()
         fwd, _, _ = model.forward(params, {"tokens": tokens}, mode="train")
-        assert fa.flash_attention.launches - before == cfg.num_layers
+        assert read_counts() == expected_launches(model), read_counts()
         cache, _ = model.init_cache(1, 32, device="cuda")
         err = 0.0
         for t in range(16):
             logits, cache = model.decode_step(params, tokens[:, t], cache)
             err = max(err, float((logits[0, :v] - fwd[0, t, :v]).abs().max()))
     torch.cuda.synchronize()
-    log(f"  fp32 train-forward (flash kernel) vs 16 decode steps: max|dlogit| = {err:.3e} "
+    log(f"  fp32 {cfg.name} ({cfg.num_layers} layers) train forward "
+        f"({expected_launches(model)}) vs 16 decode steps: max|dlogit| = {err:.3e} "
         f"(bound 2e-3)")
     assert err < 2e-3, f"prefill-vs-decode max err {err}"
+    del model, params
+    torch.cuda.empty_cache()
     return err
 
 
 def phase_serving(cfg, params, device_line: str):
     engine = ServingEngine(cfg, params, make_paper_cluster(), max_batch=4, device="cuda")
     reqs = [Request(i, np.arange(3, 19, dtype=np.int32), 8) for i in range(8)]
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     m = engine.serve(reqs)
@@ -239,7 +487,8 @@ def phase_serving(cfg, params, device_line: str):
     assert m["tokens_per_s"] > 0
     new_tokens = sum(r.max_new_tokens for r in reqs)
     log(f"  [{device_line}] served 8 requests (prompt 16, 8 new tokens, max_batch 4): "
-        f"wall {wall:.4f} s, {new_tokens / wall:.2f} generated tokens/s")
+        f"wall {wall:.4f} s, {new_tokens / wall:.2f} generated tokens/s; kernel launches "
+        f"{read_counts()} (the engine feeds prompts through decode_step)")
     log("  simulated edge-cluster metrics (cost model, not device time): "
         + json.dumps({k: m[k] for k in m if k != "scheduler"}))
     # one decode step as the engine runs it: batch 4, cache of P + N + 1 slots
@@ -252,6 +501,26 @@ def phase_serving(cfg, params, device_line: str):
     return wall
 
 
+def drive(arch: str, first: int, batch: int, seq: int, device_line: str,
+          consistency_layers: int = 0) -> dict:
+    """Prefill, fp32 consistency and serving of one model at full width."""
+    cfg = get_config(arch)
+    log(f"phase {first}: full-width {arch} prefill")
+    model = Model(cfg)
+    params, _ = model.init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    log(f"  {model.param_count(params) / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    out = phase_prefill(model, params, batch, seq, device_line)
+    cut = f", depth cut to {consistency_layers}" if consistency_layers else ""
+    log(f"phase {first + 1}: full-width fp32 prefill vs decode{cut}")
+    phase_consistency(dataclasses.replace(cfg, num_layers=consistency_layers or cfg.num_layers))
+    log(f"phase {first + 2}: {arch} serving")
+    phase_serving(cfg, params, device_line)
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -261,44 +530,39 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device_line = card()
     log(f"phase 1: {device_line}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
-    fa._lib()
-    seconds, ptxas = build.build_info("flash_attention")
-    log(f"  built flash_attention in {seconds:.1f} s (load {time.perf_counter() - t0:.1f} s)")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    build_all()
 
     log("phase 2: kernels vs plain versions on the card")
-    cases = phase_kernels_vs_plain()
+    cases = {"flash_attention": flash_vs_plain(), "ssd_scan": ssd_vs_plain(),
+             "rglru_scan": rglru_vs_plain()}
 
-    log("phase 3: timing at the main-path shape")
-    timing = phase_timing(device_line)
+    log("phase 3: timing at the main-path shapes")
+    timing = {"flash_attention": flash_timing(device_line), "ssd_scan": ssd_timing(device_line),
+              "rglru_scan": rglru_timing(device_line)}
 
-    log("phase 4: full-width qwen2.5-3b prefill (main path)")
-    cfg = get_config("qwen2.5-3b")
-    model = Model(cfg)
-    params, _ = model.init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
-    launches = phase_prefill(model, params, device_line)
+    # each path: its counts are zeroed just before its prefill and read after
+    paths = {
+        "qwen2.5-3b prefill (2, 512)": drive("qwen2.5-3b", 4, 2, 512, device_line),
+        "mamba2-130m prefill (2, 2048)": drive("mamba2-130m", 7, 2, 2048, device_line),
+        # full depth in fp32 would not fit beside the bf16 weights: the
+        # consistency check keeps 5 layers (one super-block and both tails)
+        "recurrentgemma-9b prefill (1, 4096)": drive("recurrentgemma-9b", 10, 1, 4096,
+                                                     device_line, consistency_layers=5),
+    }
 
-    log("phase 5: full-width fp32 prefill vs decode")
-    phase_consistency(cfg)
-    torch.cuda.empty_cache()
-
-    log("phase 6: serving (main path)")
-    fa.flash_attention.launches = 0
-    phase_serving(cfg, params, device_line)
-    log(f"  flash launches while serving: {fa.flash_attention.launches} "
-        f"(the engine feeds prompts through decode_step)")
-
-    kernels = [dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:30",
-        launches=launches, max_abs_err=cases[0]["max_abs_err"],
-        ms=timing["ms"], kernel_ms=timing["ms"], plain_ms=timing["plain_ms"],
-        bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
-        library_ms=timing["library_ms"], cuda_core_ms=timing["cuda_core_ms"], cases=cases)]
+    log("phase 13: results")
+    kernels = []
+    for name, source, replaces in (
+            ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:30"),
+            ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:24"),
+            ("rglru_scan", "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:26")):
+        by_path = {p: r["launches"][name] for p, r in paths.items() if r["launches"][name]}
+        assert by_path, f"{name} was launched on no path"
+        t = timing[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=cases[name][0]["max_abs_err"], **t, cases=cases[name]))
     print(json.dumps({"kernels": kernels}))
     print(device_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,14 +5,14 @@
     device. A CUDA tensor runs the Hopper kernel, which launches or raises;
     a CPU tensor runs the kernel's plain version. No path falls back to
     another.
-  - "torch": the plain PyTorch path (q-chunked, memory-efficient) on any
-    device; the counterpart of the reference's "xla".
+  - "torch": the plain PyTorch path on any device (q-chunked attention,
+    chunked SSD, log-depth RG-LRU scan); the counterpart of the reference's
+    "xla".
   - "cuda": the Hopper kernel; raises on a tensor that is not on a CUDA
     device.
 
 The models call these entry points exclusively, so swapping execution paths
-never touches model code. The SSD and RG-LRU entry points come with their
-slices.
+never touches model code.
 """
 
 from __future__ import annotations
@@ -24,6 +24,16 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.ssd_scan import ssd_scan
+
+
+def _check_kernel_impl(impl: str, op: str, t: torch.Tensor) -> None:
+    """Raise unless ``impl`` is "auto", or "cuda" with ``t`` on a CUDA device."""
+    if impl not in ("auto", "cuda"):
+        raise ValueError(f"unknown {op} impl {impl!r}")
+    if impl == "cuda" and t.device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got one on {t.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -74,10 +84,7 @@ def attention(
     """Self-attention over aligned q/k/v (prefill & training)."""
     if impl == "torch":
         return _attention_chunked(q, k, v, causal=causal, window=window, scale=scale)
-    if impl not in ("auto", "cuda"):
-        raise ValueError(f"unknown attention impl {impl!r}")
-    if impl == "cuda" and q.device.type != "cuda":
-        raise ValueError(f"impl='cuda' needs CUDA tensors, got one on {q.device}")
+    _check_kernel_impl(impl, "attention", q)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal, window=window, scale=scale)
 
@@ -107,3 +114,66 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrs,bgsd->bgrd", p, v_cache.float())
     return o.reshape(b, hq, 1, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SSD (mamba-2)
+# ---------------------------------------------------------------------------
+
+def ssd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b_mat: torch.Tensor,
+    c_mat: torch.Tensor,
+    *,
+    chunk: int = 256,
+    impl: str = "auto",
+):
+    """Chunked SSD scan; returns (y, final_state)."""
+    if impl == "torch":
+        return ref.ssd_chunked_ref(x, dt, a, b_mat, c_mat, chunk)
+    _check_kernel_impl(impl, "ssd", x)
+    return ssd_scan(x.contiguous(), dt.contiguous(), a.contiguous(), b_mat.contiguous(),
+                    c_mat.contiguous(), chunk=chunk)
+
+
+def ssd_decode_step(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b_mat: torch.Tensor,
+    c_mat: torch.Tensor,
+    h: torch.Tensor,
+):
+    """Single-token SSD recurrence update, plain PyTorch on every device.
+
+    x: (B, H, P); dt: (B, H); a: (H,); b_mat/c_mat: (B, G, N); h: (B, H, P, N).
+    Returns (y (B, H, P), h_new).
+    """
+    H = x.shape[1]
+    rep = H // b_mat.shape[1]
+    bf = torch.repeat_interleave(b_mat.float(), rep, dim=1)
+    cf = torch.repeat_interleave(c_mat.float(), rep, dim=1)
+    dtf = dt.float()
+    da = torch.exp(dtf * a.float()[None, :])
+    h_new = h * da[..., None, None] + torch.einsum("bh,bhp,bhn->bhpn", dtf, x.float(), bf)
+    y = torch.einsum("bhpn,bhn->bhp", h_new, cf).to(x.dtype)
+    return y, h_new
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU linear recurrence
+# ---------------------------------------------------------------------------
+
+def rglru(a: torch.Tensor, b: torch.Tensor, *, chunk: int = 256,
+          impl: str = "auto") -> torch.Tensor:
+    """Gated linear recurrence h_t = a_t h_{t-1} + b_t over (B, L, W).
+
+    ``chunk`` is the reference's Pallas chunk, kept for its signature; the
+    Hopper kernel walks any L without chunking.
+    """
+    if impl == "torch":
+        return ref.rglru_ref(a, b)
+    _check_kernel_impl(impl, "rglru", a)
+    return rglru_scan(a.contiguous(), b.contiguous())

@@ -2,7 +2,7 @@
 
 These are the correctness references: slow, simple, obviously-right
 implementations that the CPU path runs and that the kernels are held against
-on the card. The SSD and RG-LRU oracles come with their slices.
+on the card.
 """
 
 from __future__ import annotations
@@ -57,3 +57,110 @@ def attention_ref(
     s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def _heads_from_groups(m: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, L, G, N) -> (B, L, H, N) in fp32: head h reads group h * G // H."""
+    return torch.repeat_interleave(m.float(), num_heads // m.shape[2], dim=2)
+
+
+def ssd_sequential(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b_mat: torch.Tensor,
+    c_mat: torch.Tensor,
+    h0: torch.Tensor | None = None,
+):
+    """Sequential (loop-over-time) Mamba-2 SSD oracle.
+
+    x:     (B, L, H, P)   inner activations per head
+    dt:    (B, L, H)      positive step sizes
+    a:     (H,)           negative per-head decay log-rate
+    b_mat: (B, L, G, N)   input projections (G groups, heads share a group)
+    c_mat: (B, L, G, N)   output projections
+    h0:    (B, H, P, N)   optional initial state
+
+    Returns (y (B, L, H, P) in x's dtype, h_final (B, H, P, N) fp32). All
+    math in fp32.
+    """
+    B, L, H, P = x.shape
+    N = b_mat.shape[3]
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    bf, cf = _heads_from_groups(b_mat, H), _heads_from_groups(c_mat, H)
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(L):
+        da = torch.exp(dtf[:, t] * af[None, :])                       # (B, H)
+        h = h * da[..., None, None] + torch.einsum(
+            "bh,bhp,bhn->bhpn", dtf[:, t], xf[:, t], bf[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def ssd_chunked_ref(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b_mat: torch.Tensor,
+    c_mat: torch.Tensor,
+    chunk: int,
+    h0: torch.Tensor | None = None,
+):
+    """Chunked SSD in plain PyTorch: the algorithm the kernel implements.
+
+    Mathematically identical to :func:`ssd_sequential`: per chunk an
+    intra-chunk quadratic (attention-like) term, the carried state's term
+    and the state update. Raises ``ValueError`` unless ``chunk`` divides L,
+    as the reference asserts.
+    """
+    B, L, H, P = x.shape
+    N = b_mat.shape[3]
+    if chunk < 1 or L % chunk:
+        raise ValueError(f"L={L} not divisible by chunk={chunk}")
+    nc = L // chunk
+    xf = x.float().reshape(B, nc, chunk, H, P)
+    dtf = dt.float().reshape(B, nc, chunk, H)
+    bf = _heads_from_groups(b_mat, H).reshape(B, nc, chunk, H, N)
+    cf = _heads_from_groups(c_mat, H).reshape(B, nc, chunk, H, N)
+    lcum = torch.cumsum(dtf * a.float()[None, None, None, :], dim=2)   # inclusive
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for c in range(nc):
+        xc, dtc, bc, cc, lc = xf[:, c], dtf[:, c], bf[:, c], cf[:, c], lcum[:, c]
+        # intra-chunk
+        cb = torch.einsum("bqhn,bshn->bhqs", cc, bc)
+        decay = torch.exp(lc[:, :, None, :] - lc[:, None, :, :]).permute(0, 3, 1, 2)
+        gate = torch.where(mask, cb * decay, 0.0)
+        y = torch.einsum("bhqs,bsh,bshp->bqhp", gate, dtc, xc)
+        # carried state
+        y = y + torch.einsum("bqh,bqhn,bhpn->bqhp", torch.exp(lc), cc, h)
+        # state update
+        ltot = lc[:, -1, :]                                            # (B, H)
+        w = torch.exp(ltot[:, None, :] - lc) * dtc                     # (B, Q, H)
+        h = h * torch.exp(ltot)[..., None, None] + torch.einsum(
+            "bqh,bqhp,bqhn->bhpn", w, xc, bc)
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(B, L, H, P).to(x.dtype)
+    return y, h
+
+
+def rglru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Oracle for the RG-LRU recurrence h_t = a_t * h_{t-1} + b_t (h_0 = 0).
+
+    a, b: (B, L, W). A log-depth (Hillis-Steele) scan over time in fp32,
+    the counterpart of the reference's associative scan; the output is in
+    b's dtype.
+    """
+    af, bf = a.float(), b.float()
+    L = af.shape[1]
+    shift = 1
+    while shift < L:
+        # element t absorbs the segment ending at t - shift
+        bf = torch.cat([bf[:, :shift], af[:, shift:] * bf[:, :-shift] + bf[:, shift:]], 1)
+        af = torch.cat([af[:, :shift], af[:, shift:] * af[:, :-shift]], 1)
+        shift *= 2
+    return bf.to(b.dtype)

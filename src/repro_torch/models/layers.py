@@ -1,4 +1,5 @@
-"""Primitive layers of the dense family.
+"""Primitive layers: norms, rotary embeddings, MLP, GQA attention and
+embeddings, shared by the families of the unified model.
 
 Plain functions on tensors: each ``init_*`` builds params via a ParamBuilder
 (recording logical axes as metadata); each ``apply`` is a plain function.

@@ -1,4 +1,5 @@
-"""The dense decoder family of the unified model.
+"""The unified model: the dense, SSM (mamba2) and hybrid (recurrentgemma)
+families.
 
 One ``Model`` object per ``ModelConfig`` exposes, as the reference does:
 
@@ -9,26 +10,28 @@ One ``Model`` object per ``ModelConfig`` exposes, as the reference does:
   decode_step(params, token, cache)  -> (logits, cache)
 
 Parameters keep the reference's tree, with the layers stacked on a leading
-axis under ``"blocks"``; the reference's ``lax.scan`` over layers is a Python
-loop over layer slices, and the port runs eagerly. Entry points run on the
-card unless the caller names another device.
+axis under ``"blocks"`` (the hybrid family: repeating super-blocks under
+``"super"`` and the leftover layers as ``"tail{t}"``); the reference's
+``lax.scan`` over layers is a Python loop over layer slices, and the port
+runs eagerly. Entry points run on the card unless the caller names another
+device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SSM
 from repro_torch.utils.params import ParamBuilder, count_params, layer_slice, stack_layers
 
 #: the ROADMAP item that ports each family still missing here
 _FAMILY_ITEMS = {
     "moe": "ROADMAP Queue A item 13 (MoE on one device)",
-    "ssm": "ROADMAP Queue A item 10 (SSM family)",
-    "hybrid": "ROADMAP Queue A item 11 (hybrid family)",
     "audio": "ROADMAP Queue A item 14 (audio and VLM families)",
     "vlm": "ROADMAP Queue A item 14 (audio and VLM families)",
 }
@@ -37,6 +40,21 @@ _FAMILY_ITEMS = {
 def _init_dense_block(b: ParamBuilder, cfg: ModelConfig):
     L.init_norm(b, "ln1", cfg.d_model, cfg.norm)
     L.init_attention(b, "attn", cfg)
+    L.init_norm(b, "ln2", cfg.d_model, cfg.norm)
+    L.init_mlp(b, "ffn", cfg)
+
+
+def _init_ssm_block(b: ParamBuilder, cfg: ModelConfig):
+    L.init_norm(b, "ln", cfg.d_model, cfg.norm)
+    SSM.init_ssm(b, "mixer", cfg)
+
+
+def _init_hybrid_block(b: ParamBuilder, cfg: ModelConfig, kind: str):
+    L.init_norm(b, "ln1", cfg.d_model, cfg.norm)
+    if kind == "rec":
+        RG.init_rglru(b, "mixer", cfg)
+    else:
+        L.init_attention(b, "attn", cfg)
     L.init_norm(b, "ln2", cfg.d_model, cfg.norm)
     L.init_mlp(b, "ffn", cfg)
 
@@ -51,14 +69,46 @@ def _stack_init(generator, n: int, fn, dtype, device):
     return stack_layers(outs)
 
 
+def _stack_states(states: list):
+    """Stack per-layer states (tensors, or dicts / tuples of them) along a new
+    leading layer axis, as the reference's ``lax.scan`` stacks its outputs."""
+    s0 = states[0]
+    if isinstance(s0, dict):
+        return {k: _stack_states([s[k] for s in states]) for k in s0}
+    if isinstance(s0, tuple):
+        return tuple(_stack_states(list(z)) for z in zip(*states))
+    return torch.stack(states)
+
+
 class Model:
     def __init__(self, cfg: ModelConfig):
         cfg.validate()
-        if cfg.family != "dense" or cfg.use_mla:
+        if cfg.family not in ("dense", "ssm", "hybrid") or cfg.use_mla:
             item = _FAMILY_ITEMS.get(cfg.family, "ROADMAP Queue A item 12 (MLA)")
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not ported yet; see {item}")
         self.cfg = cfg
+
+    # -- structure helpers --------------------------------------------------
+
+    @property
+    def _pattern(self) -> Tuple[str, ...]:
+        return self.cfg.block_pattern or ()
+
+    @property
+    def _n_super(self) -> int:
+        if self.cfg.family == "hybrid":
+            return self.cfg.num_layers // len(self._pattern)
+        return 0
+
+    @property
+    def _n_tail(self) -> int:
+        if self.cfg.family == "hybrid":
+            return self.cfg.num_layers % len(self._pattern)
+        return 0
+
+    def _tail_kind(self, t: int) -> str:
+        return self._pattern[t % len(self._pattern)]
 
     # -- init ---------------------------------------------------------------
 
@@ -74,8 +124,22 @@ class Model:
         L.init_embed(b, cfg)
         L.init_norm(b, "final_norm", cfg.d_model, cfg.norm)
         params, specs = b.build()
-        params["blocks"], specs["blocks"] = _stack_init(
-            generator, cfg.num_layers, lambda bb: _init_dense_block(bb, cfg), dtype, device)
+        if cfg.family == "dense":
+            params["blocks"], specs["blocks"] = _stack_init(
+                generator, cfg.num_layers, lambda bb: _init_dense_block(bb, cfg), dtype, device)
+        elif cfg.family == "ssm":
+            params["blocks"], specs["blocks"] = _stack_init(
+                generator, cfg.num_layers, lambda bb: _init_ssm_block(bb, cfg), dtype, device)
+        else:
+            def init_super(bb: ParamBuilder):
+                for j, kind in enumerate(self._pattern):
+                    _init_hybrid_block(bb.sub(f"b{j}_{kind}"), cfg, kind)
+            params["super"], specs["super"] = _stack_init(
+                generator, self._n_super, init_super, dtype, device)
+            for t in range(self._n_tail):
+                tb = ParamBuilder(generator, dtype=dtype, device=device)
+                _init_hybrid_block(tb, cfg, self._tail_kind(t))
+                params[f"tail{t}"], specs[f"tail{t}"] = tb.build()
         return params, specs
 
     # -- block applications (full sequence) ---------------------------------
@@ -90,9 +154,37 @@ class Model:
         x = x + L.apply_mlp(p["ffn"], h, cfg)
         return x, (kv if collect_kv else None)
 
+    def _hybrid_block(self, p, kind: str, x, positions, *, collect: bool):
+        """One rec or attn block of the hybrid family; returns (x, state), the
+        state being the RG-LRU's {"conv", "h"} or the window-clipped (k, v)."""
+        cfg = self.cfg
+        h = L.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+        if kind == "rec":
+            out, st = RG.apply_rglru(p["mixer"], h, cfg)
+        else:
+            out, kv = L.apply_attention(p["attn"], h, cfg, positions, causal=True,
+                                        window=cfg.local_window)
+            st = self._clip_window_kv(kv, x.shape[1]) if collect else None
+        x = x + out
+        h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+        return x + L.apply_mlp(p["ffn"], h, cfg), (st if collect else None)
+
+    def _clip_window_kv(self, kv, S: int):
+        """Keep only the trailing window of prefill K/V for the local cache."""
+        w = self.cfg.local_window
+        k, v = kv
+        if S < w:
+            pad = (0, 0, 0, w - S)   # zeros after the S positions, as jnp.pad
+            k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+        elif S > w:
+            k, v = k[:, :, -w:, :], v[:, :, -w:, :]
+        return (k, v)
+
     def _window(self, shape_kind: str) -> int:
         """Attention window for a given execution (0 = full)."""
         cfg = self.cfg
+        if cfg.family == "hybrid":
+            return cfg.local_window
         if shape_kind == "long" and cfg.long_context == "sliding":
             return cfg.window
         return 0
@@ -106,7 +198,10 @@ class Model:
         batch: {"tokens": (B, S) int}
         Returns (logits (B, S, V), aux_loss scalar, cache_or_None).
         mode: "train" (logits over all positions) or "prefill" (last-position
-        logits and the stacked (L, B, Hkv, S, hd) K/V cache).
+        logits and the reference's prefill cache: the dense family's stacked
+        (L, B, Hkv, S, hd) K/V, the SSM family's stacked {"conv", "ssm"}
+        states, the hybrid family's per-super-block states under "super" and
+        each tail's under "tail{t}").
         """
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -115,18 +210,46 @@ class Model:
         positions = torch.arange(S, device=tokens.device)
         aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
         collect = mode == "prefill"
-        ks, vs = [], []
-        for i in range(cfg.num_layers):
-            x, kv = self._dense_block(layer_slice(params["blocks"], i), x, positions,
-                                      window=window, collect_kv=collect)
+        caches: Dict[str, Any] = {}
+        if cfg.family == "dense":
+            kvs = []
+            for i in range(cfg.num_layers):
+                x, kv = self._dense_block(layer_slice(params["blocks"], i), x, positions,
+                                          window=window, collect_kv=collect)
+                kvs.append(kv)
             if collect:
-                ks.append(kv[0])
-                vs.append(kv[1])
+                caches["kv"] = _stack_states(kvs)
+        elif cfg.family == "ssm":
+            states = []
+            for i in range(cfg.num_layers):
+                p = layer_slice(params["blocks"], i)
+                h = L.apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+                out, st = SSM.apply_ssm(p["mixer"], h, cfg)
+                x = x + out
+                states.append(st)
+            if collect:
+                caches["ssm_states"] = _stack_states(states)
+        else:
+            sup_states = []
+            for i in range(self._n_super):
+                p = layer_slice(params["super"], i)
+                st_out = {}
+                for j, kind in enumerate(self._pattern):
+                    x, st_out[f"b{j}"] = self._hybrid_block(p[f"b{j}_{kind}"], kind, x,
+                                                            positions, collect=collect)
+                sup_states.append(st_out)
+            if collect:
+                caches["super"] = _stack_states(sup_states)
+            for t in range(self._n_tail):
+                x, st = self._hybrid_block(params[f"tail{t}"], self._tail_kind(t), x,
+                                           positions, collect=collect)
+                if collect:
+                    caches[f"tail{t}"] = st
 
         x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
         if mode == "prefill":
             logits = L.unembed(params, x[:, -1:, :], cfg)
-            return logits[:, 0, :], aux_total, {"kv": (torch.stack(ks), torch.stack(vs))}
+            return logits[:, 0, :], aux_total, caches
         logits = L.unembed(params, x, cfg)
         return logits, aux_total, None
 
@@ -151,7 +274,7 @@ class Model:
         """Build an empty decode cache (+ its logical-axes spec tree)."""
         cfg = self.cfg
         dt = cfg.torch_dtype
-        hd = cfg.head_dim_
+        hd = cfg.head_dim_ if cfg.num_heads else 0
         n = cfg.num_layers
         entries: Dict[str, Any] = {}
         specs: Dict[str, Any] = {}
@@ -161,14 +284,40 @@ class Model:
             specs[name] = axes
 
         kvs = ("layers", "batch", "kv_heads", "kv_seq", None)
-        q8 = cfg.kv_cache_dtype == "int8"
-        kvdt = torch.int8 if q8 else dt
-        put("k", (n, batch, cfg.num_kv_heads, cache_len, hd), kvs, kvdt)
-        put("v", (n, batch, cfg.num_kv_heads, cache_len, hd), kvs, kvdt)
-        if q8:
-            scs = ("layers", "batch", "kv_heads", "kv_seq")
-            put("k_scale", (n, batch, cfg.num_kv_heads, cache_len), scs, torch.float32)
-            put("v_scale", (n, batch, cfg.num_kv_heads, cache_len), scs, torch.float32)
+        if cfg.family == "dense":
+            q8 = cfg.kv_cache_dtype == "int8"
+            kvdt = torch.int8 if q8 else dt
+            put("k", (n, batch, cfg.num_kv_heads, cache_len, hd), kvs, kvdt)
+            put("v", (n, batch, cfg.num_kv_heads, cache_len, hd), kvs, kvdt)
+            if q8:
+                scs = ("layers", "batch", "kv_heads", "kv_seq")
+                put("k_scale", (n, batch, cfg.num_kv_heads, cache_len), scs, torch.float32)
+                put("v_scale", (n, batch, cfg.num_kv_heads, cache_len), scs, torch.float32)
+        elif cfg.family == "ssm":
+            di, H, _, d_bc = SSM.ssm_dims(cfg)
+            put("conv", (n, batch, cfg.ssm_conv - 1, di + 2 * d_bc),
+                ("layers", "batch", None, "ff"))
+            put("ssm", (n, batch, H, cfg.ssm_head_dim, cfg.ssm_state),
+                ("layers", "batch", "heads", None, None), torch.float32)
+        else:
+            # the local-attention caches are ring buffers of the window's size,
+            # whatever cache_len asks, as in the reference
+            W, win, ns = RG.lru_width(cfg), cfg.local_window, self._n_super
+            for j, kind in enumerate(self._pattern):
+                if kind == "rec":
+                    put(f"s{j}_conv", (ns, batch, RG._CONV_K - 1, W),
+                        ("layers", "batch", None, "ff"))
+                    put(f"s{j}_h", (ns, batch, W), ("layers", "batch", "ff"), torch.float32)
+                else:
+                    put(f"s{j}_k", (ns, batch, cfg.num_kv_heads, win, hd), kvs)
+                    put(f"s{j}_v", (ns, batch, cfg.num_kv_heads, win, hd), kvs)
+            for t in range(self._n_tail):
+                if self._tail_kind(t) == "rec":
+                    put(f"t{t}_conv", (batch, RG._CONV_K - 1, W), ("batch", None, "ff"))
+                    put(f"t{t}_h", (batch, W), ("batch", "ff"), torch.float32)
+                else:
+                    put(f"t{t}_k", (batch, cfg.num_kv_heads, win, hd), kvs[1:])
+                    put(f"t{t}_v", (batch, cfg.num_kv_heads, win, hd), kvs[1:])
         put("pos", (), (), torch.int32)
         return entries, specs
 
@@ -180,6 +329,18 @@ class Model:
         pos = cache["pos"]
         new_cache = dict(cache)
         new_cache["pos"] = pos + 1
+        if cfg.family == "ssm":
+            x = self._ssm_decode(params, x, cache, new_cache)
+        elif cfg.family == "hybrid":
+            x = self._hybrid_decode(params, x, cache, new_cache, pos)
+        else:
+            x = self._dense_decode(params, x, cache, new_cache, pos, window)
+        x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+        logits = L.unembed(params, x, cfg)
+        return logits[:, 0, :], new_cache
+
+    def _dense_decode(self, params, x, cache, new_cache, pos, window):
+        cfg = self.cfg
         q8 = cfg.kv_cache_dtype == "int8"
         kv_names = ("k", "v", "k_scale", "v_scale") if q8 else ("k", "v")
         outs = [[] for _ in kv_names]
@@ -203,10 +364,57 @@ class Model:
                 acc.append(arr)
         for nm, arrs in zip(kv_names, outs):
             new_cache[nm] = torch.stack(arrs)
+        return x
 
-        x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-        logits = L.unembed(params, x, cfg)
-        return logits[:, 0, :], new_cache
+    def _ssm_decode(self, params, x, cache, new_cache):
+        cfg = self.cfg
+        convs, ssms = [], []
+        for i in range(cfg.num_layers):
+            p = layer_slice(params["blocks"], i)
+            h = L.apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+            out, st = SSM.apply_ssm_decode(p["mixer"], h, cfg,
+                                           {"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
+            x = x + out
+            convs.append(st["conv"])
+            ssms.append(st["ssm"])
+        new_cache["conv"], new_cache["ssm"] = torch.stack(convs), torch.stack(ssms)
+        return x
+
+    def _hybrid_decode_block(self, p, kind, x, c, pos):
+        """One decode step of a rec or attn block; ``c`` holds the block's
+        cache entries under the suffixes conv/h or k/v, and the new ones are
+        returned the same way."""
+        cfg = self.cfg
+        h = L.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+        if kind == "rec":
+            out, nc = RG.apply_rglru_decode(p["mixer"], h, cfg, c)
+        else:
+            out, nk, nv = L.apply_attention_decode(p["attn"], h, cfg, c["k"], c["v"], pos,
+                                                   window=cfg.local_window)
+            nc = {"k": nk, "v": nv}
+        x = x + out
+        h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+        return x + L.apply_mlp(p["ffn"], h, cfg), nc
+
+    def _hybrid_decode(self, params, x, cache, new_cache, pos):
+        suffixes = {"rec": ("conv", "h"), "attn": ("k", "v")}
+        outs: Dict[str, list] = {}
+        for i in range(self._n_super):
+            p = layer_slice(params["super"], i)
+            for j, kind in enumerate(self._pattern):
+                c = {sfx: cache[f"s{j}_{sfx}"][i] for sfx in suffixes[kind]}
+                x, nc = self._hybrid_decode_block(p[f"b{j}_{kind}"], kind, x, c, pos)
+                for sfx, arr in nc.items():
+                    outs.setdefault(f"s{j}_{sfx}", []).append(arr)
+        for name, arrs in outs.items():
+            new_cache[name] = torch.stack(arrs)
+        for t in range(self._n_tail):
+            kind = self._tail_kind(t)
+            c = {sfx: cache[f"t{t}_{sfx}"] for sfx in suffixes[kind]}
+            x, nc = self._hybrid_decode_block(params[f"tail{t}"], kind, x, c, pos)
+            for sfx, arr in nc.items():
+                new_cache[f"t{t}_{sfx}"] = arr
+        return x
 
     def param_count(self, params=None) -> int:
         if params is None:

@@ -10,7 +10,8 @@ stay real. The metrics are simulated milliseconds, not device time.
 The batcher groups requests by prompt length (uniform-position batches match
 the scalar-position cache layout of the decode path). As in the reference,
 the prompt is fed through ``decode_step`` one token at a time, so serving
-reaches no attention kernel; prefill is the model's ``forward``.
+reaches no hand-written kernel in any family; prefill is the model's
+``forward``.
 """
 
 from __future__ import annotations

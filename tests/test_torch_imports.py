@@ -22,7 +22,8 @@ def test_no_source_imports_jax_or_repro():
 
 
 def test_imports_and_runs_without_jax():
-    """Every module imports, and a tiny forward runs, with JAX unimportable."""
+    """Every module imports, and a tiny forward of each ported family runs,
+    with JAX unimportable."""
     code = textwrap.dedent("""
         import importlib, pathlib, sys
         sys.modules["jax"] = None
@@ -35,11 +36,13 @@ def test_imports_and_runs_without_jax():
             importlib.import_module(name)
         from repro_torch.configs import get_config
         from repro_torch.models.model import Model
-        cfg = get_config("qwen2.5-3b").reduced()
-        model = Model(cfg)
-        params, _ = model.init(torch.Generator().manual_seed(0), device="cpu")
-        logits, _, _ = model.forward(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
-        assert logits.shape == (1, 4, cfg.padded_vocab) and torch.isfinite(logits).all()
+        for arch in ("qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b"):
+            cfg = get_config(arch).reduced()
+            model = Model(cfg)
+            params, _ = model.init(torch.Generator().manual_seed(0), device="cpu")
+            logits, _, _ = model.forward(params,
+                                         {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+            assert logits.shape == (1, 4, cfg.padded_vocab) and torch.isfinite(logits).all()
         assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
                        if sys.modules[m] is not None)
         print(len(names))

@@ -1,5 +1,5 @@
-"""The port's attention paths against the reference's, and the Hopper kernel
-against its plain version.
+"""The port's attention paths against the reference's, and the Hopper kernels
+against their plain versions.
 
 CPU tests: the plain path (``ops.attention`` and ``decode_attention``) is
 held against the reference oracle and the reference's Pallas kernel run in
@@ -7,8 +7,12 @@ interpret mode, on the shapes and masks of ``tests/test_kernels.py``, at that
 file's tolerances (2e-5 fp32, 2e-2 bf16). Inputs are drawn once with numpy
 and handed to both packages.
 
-Card tests (marker ``gpu``): the CUDA kernel against the plain version on
-the card. They skip where no CUDA device is present.
+Card tests (marker ``gpu``): each CUDA kernel (flash attention, the SSD
+scan, the RG-LRU scan) against its plain version on the card, at the
+reference's tolerances (2e-4 fp32 / 3e-2 bf16 for the SSD scan, 2e-5 / 3e-2
+for the RG-LRU scan). They skip where no CUDA device is present. The CPU
+tests of the two scans are in ``test_torch_ssm.py`` and
+``test_torch_rglru.py``.
 """
 
 import numpy as np
@@ -16,6 +20,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels import ops, ref
 
 try:
@@ -159,6 +165,9 @@ GPU_CASES = [
     (2, 4, 2, 200, 72, 40, True, 0, "bfloat16"),      # D % 16 != 0: CUDA cores
     (2, 16, 2, 512, 128, 128, True, 0, "bfloat16"),   # chip_smoke's (2, 512) prefill
     (1, 16, 2, 16, 128, 128, True, 0, "float32"),     # chip_smoke's 16-token forward
+    # recurrentgemma local attention: D = 256, one kv head, sliding window
+    (1, 16, 1, 640, 256, 256, True, 256, "bfloat16"),
+    (1, 16, 1, 640, 256, 256, True, 256, "float32"),
 ]
 
 
@@ -194,3 +203,79 @@ def test_kernel_on_unaligned_bf16_views():
     torch.cuda.synchronize()
     want = ref.attention_ref(q, k, v, causal=True)
     np.testing.assert_allclose(_np(got), _np(want), rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+SSD_GPU_CASES = [
+    # (B, L, H, P, G, N, chunk, dtype of x/B/C); dt and a stay fp32 as the model gives them
+    (1, 128, 2, 32, 1, 16, 32, "float32"),
+    (2, 256, 4, 64, 1, 32, 64, "float32"),
+    (1, 256, 4, 64, 2, 32, 128, "float32"),    # grouped B/C
+    (2, 64, 2, 32, 1, 64, 64, "float32"),      # single chunk
+    (1, 300, 3, 40, 1, 128, 100, "float32"),   # chunk not a multiple of 64, P not of 32
+    (2, 512, 4, 64, 1, 128, 256, "float32"),   # mamba2-130m's P, N and chunk
+    (2, 512, 4, 64, 1, 128, 256, "bfloat16"),
+    (1, 256, 4, 64, 2, 32, 128, "bfloat16"),
+]
+
+
+def _ssd_np(seed, B, L, H, P, G, N):
+    """The reference tests' input distribution, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, L, H, P), dtype=np.float32) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((B, L, H), dtype=np.float32))) * 0.1
+    a = -np.exp(rng.standard_normal(H, dtype=np.float32) * 0.5)
+    bm = rng.standard_normal((B, L, G, N), dtype=np.float32) * 0.3
+    cm = rng.standard_normal((B, L, G, N), dtype=np.float32) * 0.3
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_GPU_CASES)
+def test_ssd_kernel_matches_plain_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    *shape, chunk, dtype = case
+    x, dt, a, bm, cm = _ssd_np(sum(shape), *shape)
+    wide = getattr(torch, dtype)
+    x, bm, cm = (torch.from_numpy(t).to("cuda", wide) for t in (x, bm, cm))
+    dt, a = torch.from_numpy(dt).cuda(), torch.from_numpy(a).cuda()
+    before = ss.ssd_scan.launches
+    y, h = ss.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan.launches == before + 1
+    assert y.dtype == x.dtype and h.dtype == torch.float32
+    y_ref, h_ref = ref.ssd_sequential(x, dt, a, bm, cm)
+    tol = 2e-4 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(_np(y), _np(y_ref), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(h), _np(h_ref), rtol=tol, atol=tol)
+
+
+RGLRU_GPU_CASES = [
+    # (B, L, W, dtype of a, dtype of b)
+    (1, 128, 64, "float32", "float32"),
+    (2, 256, 128, "float32", "float32"),
+    (1, 1000, 96, "float32", "float32"),     # ragged L
+    (2, 1, 64, "float32", "float32"),        # L = 1
+    (1, 128, 64, "bfloat16", "bfloat16"),
+    (1, 300, 40, "float32", "bfloat16"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RGLRU_GPU_CASES)
+def test_rglru_kernel_matches_plain_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    B, L, W, a_dtype, b_dtype = case
+    rng = np.random.default_rng(B + L + W)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, L, W), dtype=np.float32)))
+    b = rng.standard_normal((B, L, W), dtype=np.float32) * 0.5
+    a = torch.from_numpy(a).to("cuda", getattr(torch, a_dtype))
+    b = torch.from_numpy(b).to("cuda", getattr(torch, b_dtype))
+    before = rg.rglru_scan.launches
+    h = rg.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rg.rglru_scan.launches == before + 1
+    assert h.dtype == b.dtype
+    tol = 2e-5 if b_dtype == a_dtype == "float32" else 3e-2
+    np.testing.assert_allclose(_np(h), _np(ref.rglru_ref(a, b)), rtol=tol, atol=tol)

@@ -1,11 +1,13 @@
-"""The port's dense model against the reference on reduced qwen2.5-3b in
-fp32: train logits, prefill logits and cache, loss, and decode steps, from
-the same converted parameters; plus the reference's own consistency checks
-(``tests/test_models.py``) run on the port.
+"""The port's model against the reference in fp32, on reduced configs of
+each ported family: qwen2.5-3b (dense), mamba2-130m (SSM), recurrentgemma-9b
+(hybrid: 2 layers = one (rec, attn) super-block) and a 3-layer hybrid whose
+third layer is a tail block. Train logits, prefill logits and caches, loss,
+and decode steps, from the same converted parameters; plus the reference's
+own consistency checks (``tests/test_models.py``) run on the port.
 
-Tolerance 1e-4 against the reference: two layers of the same fp32 arithmetic
-summed in another order, over logits of magnitude ~10. The decode-vs-forward
-bound 2e-3 is the reference's own.
+Tolerance 1e-4 against the reference: a few layers of the same fp32
+arithmetic summed in another order, over logits of magnitude ~10. The
+decode-vs-forward bound 2e-3 is the reference's own.
 """
 
 import dataclasses
@@ -26,6 +28,15 @@ TOL = 1e-4
 T = 16
 
 
+#: (arch, config changes) of each case; "-tail" is the hybrid with a tail block
+VARIANTS = {
+    "qwen2.5-3b": ("qwen2.5-3b", {}),
+    "mamba2-130m": ("mamba2-130m", {}),
+    "recurrentgemma-9b": ("recurrentgemma-9b", {}),
+    "recurrentgemma-9b-tail": ("recurrentgemma-9b", {"num_layers": 3}),
+}
+
+
 def _pair(arch="qwen2.5-3b", **changes):
     changes = {"dtype": "float32", **changes}
     ref_model = RefModel(dataclasses.replace(ref_get_config(arch).reduced(), **changes))
@@ -39,15 +50,25 @@ def _close(got, want, tol=TOL):
                                rtol=tol, atol=tol)
 
 
-@pytest.fixture(scope="module")
-def qwen():
-    ref_model, ref_params, model, params = _pair()
+def _leaves(tree, path=""):
+    """{path: leaf} of nested dicts, tuples and lists."""
+    if isinstance(tree, dict):
+        return {p: v for k in tree for p, v in _leaves(tree[k], f"{path}/{k}").items()}
+    if isinstance(tree, (tuple, list)):
+        return {p: v for i, t in enumerate(tree) for p, v in _leaves(t, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+@pytest.fixture(scope="module", params=list(VARIANTS))
+def model_pair(request):
+    arch, changes = VARIANTS[request.param]
+    ref_model, ref_params, model, params = _pair(arch, **changes)
     toks = np.random.default_rng(0).integers(0, model.cfg.vocab_size, (2, T + 1))
     return ref_model, ref_params, model, params, toks.astype(np.int32)
 
 
-def test_forward_train_and_prefill_match_reference(qwen):
-    ref_model, ref_params, model, params, toks = qwen
+def test_forward_train_and_prefill_match_reference(model_pair):
+    ref_model, ref_params, model, params, toks = model_pair
     batch_j = {"tokens": jnp.asarray(toks[:, :T])}
     batch_t = {"tokens": torch.from_numpy(toks[:, :T])}
     want, _, _ = jax.jit(lambda p, b: ref_model.forward(p, b, mode="train"))(ref_params,
@@ -61,9 +82,11 @@ def test_forward_train_and_prefill_match_reference(qwen):
         lambda p, b: ref_model.forward(p, b, mode="prefill"))(ref_params, batch_j)
     got_last, _, got_cache = model.forward(params, batch_t, mode="prefill")
     _close(got_last[:, :model.cfg.vocab_size], want_last[:, :model.cfg.vocab_size])
-    for g, w in zip(got_cache["kv"], want_cache["kv"]):
-        assert tuple(g.shape) == tuple(w.shape)        # (L, B, Hkv, S, hd)
-        _close(g, w)
+    got_leaves, want_leaves = _leaves(got_cache), _leaves(want_cache)
+    assert sorted(got_leaves) == sorted(want_leaves)
+    for path, w in want_leaves.items():
+        assert tuple(got_leaves[path].shape) == tuple(w.shape), path
+        _close(got_leaves[path], w)
 
 
 @pytest.mark.parametrize("arch", ["chatglm3-6b", "qwen2-7b", "yi-9b"])
@@ -79,17 +102,22 @@ def test_forward_matches_reference_other_dense(arch):
     _close(got[..., :v], want[..., :v])
 
 
-def test_loss_matches_reference(qwen):
-    ref_model, ref_params, model, params, toks = qwen
-    want, want_nll = ref_model.loss_fn(ref_params, {"tokens": jnp.asarray(toks)}, remat=False)
+def test_loss_matches_reference(model_pair):
+    ref_model, ref_params, model, params, toks = model_pair
+    want, want_nll = jax.jit(lambda p, b: ref_model.loss_fn(p, b, remat=False))(
+        ref_params, {"tokens": jnp.asarray(toks)})
     got, got_nll = model.loss_fn(params, {"tokens": torch.from_numpy(toks)})
     _close(got, want)
     _close(got_nll, want_nll)
 
 
-@pytest.mark.parametrize("kv_cache_dtype", ["model", "int8"])
-def test_decode_steps_match_reference(kv_cache_dtype):
-    ref_model, ref_params, model, params = _pair(kv_cache_dtype=kv_cache_dtype)
+@pytest.mark.parametrize("variant,kv_cache_dtype", [
+    ("qwen2.5-3b", "model"), ("qwen2.5-3b", "int8"), ("mamba2-130m", "model"),
+    ("recurrentgemma-9b", "model"), ("recurrentgemma-9b-tail", "model")])
+def test_decode_steps_match_reference(variant, kv_cache_dtype):
+    arch, changes = VARIANTS[variant]
+    ref_model, ref_params, model, params = _pair(arch, kv_cache_dtype=kv_cache_dtype,
+                                                 **changes)
     toks = np.random.default_rng(1).integers(0, model.cfg.vocab_size, (2, T)).astype(np.int32)
     jcache, _ = ref_model.init_cache(2, T + 2)
     tcache, _ = model.init_cache(2, T + 2, device="cpu")
@@ -99,13 +127,16 @@ def test_decode_steps_match_reference(kv_cache_dtype):
         got, tcache = model.decode_step(params, torch.from_numpy(toks[:, t]), tcache)
         _close(got[:, :model.cfg.vocab_size], want[:, :model.cfg.vocab_size])
     assert int(tcache["pos"]) == T
+    assert sorted(tcache) == sorted(jcache)
     for name in jcache:
         assert tuple(tcache[name].shape) == tuple(jcache[name].shape), name
+        assert str(tcache[name].dtype).removeprefix("torch.") == str(jcache[name].dtype), name
+        _close(tcache[name], jcache[name])
 
 
-def test_decode_matches_forward(qwen):
+def test_decode_matches_forward(model_pair):
     """Sequential decode logits == full-forward logits at every position."""
-    _, _, model, params, toks = qwen
+    _, _, model, params, toks = model_pair
     tokens = torch.from_numpy(toks[:1, :T])
     fwd, _, _ = model.forward(params, {"tokens": tokens}, mode="train")
     cache, _ = model.init_cache(1, 32, device="cpu")
@@ -134,7 +165,8 @@ def test_sliding_window_decode_matches_windowed_forward():
         assert err < 2e-3, f"pos {t}: err {err}"
 
 
-def test_window_follows_reference():
-    ref_model, _, model, _ = _pair()
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "recurrentgemma-9b"])
+def test_window_follows_reference(arch):
+    ref_model, _, model, _ = _pair(arch)
     for kind in ("train", "prefill", "decode", "long"):
         assert model._window(kind) == ref_model._window(kind)

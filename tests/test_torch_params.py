@@ -18,6 +18,8 @@ from repro_torch.utils.params import count_params, from_jax, tree_bytes
 
 DENSE_ARCHS = [a for a in ARCH_IDS if get_config(a).family == "dense"]
 OTHER_ARCHS = [a for a in ARCH_IDS if get_config(a).family != "dense"]
+#: the families ported besides the dense one
+PORTED_ARCHS = [a for a in OTHER_ARCHS if get_config(a).family in ("ssm", "hybrid")]
 
 
 def _leaves(tree, prefix=""):
@@ -54,7 +56,7 @@ def test_from_jax_maps_leaf_for_leaf(qwen_ref_params):
     assert tree_bytes(params) == ref_tree_bytes(ref_params)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + PORTED_ARCHS)
 def test_init_tree_matches_reference(arch):
     """Same paths, shapes, dtypes and specs as the reference ``init``."""
     cfg = get_config(arch).reduced()
@@ -84,7 +86,22 @@ def test_init_is_seeded():
         assert torch.equal(leaf, _leaves(b)[path]), path
 
 
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
+@pytest.mark.parametrize("arch", [a for a in OTHER_ARCHS if a not in PORTED_ARCHS])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config(arch).reduced())
+
+
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
+def test_full_width_tree_matches_reference(arch):
+    """The SSM and hybrid families at full width, on the meta device: the
+    reference's parameter paths and shapes, and its parameter count."""
+    ref_model = RefModel(ref_get_config(arch))
+    ref_params, _ = ref_model.init(abstract=True)
+    params, _ = Model(get_config(arch)).init(device="meta")
+    ref_leaves, leaves = _leaves(ref_params), _leaves(params)
+    assert sorted(leaves) == sorted(ref_leaves)
+    for path, ref_leaf in ref_leaves.items():
+        assert tuple(leaves[path].shape) == tuple(ref_leaf.shape), path
+        assert str(leaves[path].dtype).removeprefix("torch.") == str(ref_leaf.dtype), path
+    assert Model(get_config(arch)).param_count() == ref_model.param_count()

@@ -1,8 +1,9 @@
 """The port's serving engine against the reference's on the same converted
-fp32 parameters: identical greedy tokens, identical node per request, and an
-identical metrics dict (the simulated clock, NSA scoring and FLOP charge are
-the same code and the same parameter count). Mirrors
-``tests/test_system.py``'s serving checks."""
+fp32 parameters, for a reduced model of each ported family (dense qwen2.5-3b,
+SSM mamba2-130m, hybrid recurrentgemma-9b): identical greedy tokens,
+identical node per request, and an identical metrics dict (the simulated
+clock, NSA scoring and FLOP charge are the same code and the same parameter
+count). Mirrors ``tests/test_system.py``'s serving checks."""
 
 import dataclasses
 
@@ -28,10 +29,10 @@ def _requests(cls):
             + [cls(10 + i, np.arange(5, 10, dtype=np.int32), 4) for i in range(3)])
 
 
-@pytest.fixture(scope="module")
-def served():
-    ref_cfg = dataclasses.replace(ref_get_config("qwen2.5-3b").reduced(), dtype="float32")
-    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(), dtype="float32")
+@pytest.fixture(scope="module", params=["qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b"])
+def served(request):
+    ref_cfg = dataclasses.replace(ref_get_config(request.param).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_config(request.param).reduced(), dtype="float32")
     ref_params, _ = RefModel(ref_cfg).init(jax.random.PRNGKey(5))
     ref_reqs, reqs = _requests(RefRequest), _requests(Request)
     ref_metrics = RefServingEngine(ref_cfg, ref_params, ref_make_paper_cluster(),
@@ -58,8 +59,9 @@ def test_same_metrics(served):
     assert metrics["tokens_per_s"] > 0
 
 
-def test_launcher_serves_on_cpu(capsys):
-    m = serve.main(["--device", "cpu", "--requests", "2", "--prompt-len", "3",
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b"])
+def test_launcher_serves_on_cpu(capsys, arch):
+    m = serve.main(["--arch", arch, "--device", "cpu", "--requests", "2", "--prompt-len", "3",
                     "--new-tokens", "2", "--max-batch", "1"])
     assert m["num_requests"] == 2
     assert "tokens_per_s" in capsys.readouterr().out
