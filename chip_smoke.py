@@ -14,9 +14,13 @@ just before a path's prefill and read just after.
 
 Phases (any failure exits non-zero):
   1. card name and power limit; build the kernels (one nvcc each, together)
-  2. each kernel against its plain version on the card
-  3. timing at the main-path shapes (CUDA events)
-  4-6. qwen2.5-3b: prefill (launches, finite logits, profile), fp32
+  2. each kernel against its plain version on the card, with the variant
+     each case takes (flash: wgmma or CUDA cores; SSD: tensor-core passes
+     or CUDA cores), the model's strided (B, S, H, D) views included
+  3. timing at the main-path shapes (CUDA events), TFLOP/s and share of the
+     bound of each kernel; flash also at the qwen prefill's own call
+  4-6. qwen2.5-3b: prefill (launches, finite logits, profile with its count
+     of copy kernels), fp32
      prefill-vs-decode consistency (bound 2e-3), serving 8 requests
   7-9. mamba2-130m: the same three
   10-12. recurrentgemma-9b: the same three (the fp32 check at depth 5)
@@ -56,6 +60,7 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense tensor-core rate, bf16
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 MAIN = dict(b=1, hq=16, hkv=2, s=2048, d=128)   # qwen2.5-3b attention at S=2048
+PREFILL = dict(b=2, hq=16, hkv=2, s=512, d=128)  # qwen2.5-3b attention in phase 4's prefill
 # recurrentgemma-9b local attention at its (1, 4096) prefill
 HYBRID = dict(b=1, hq=16, hkv=1, s=4096, d=256, window=2048)
 # mamba2-130m SSD at its (2, 2048) prefill: (B, L, H, P, G, N, chunk)
@@ -79,6 +84,13 @@ def card() -> str:
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "by_variant"):
+            fn.by_variant = dict.fromkeys(fn.by_variant, 0)
+
+
+def read_variants() -> dict:
+    return {name: dict(fn.by_variant) for name, fn in KERNELS.items()
+            if hasattr(fn, "by_variant")}
 
 
 def read_counts() -> dict:
@@ -107,6 +119,14 @@ def qkv(seed, b, hq, hkv, s, d, dv, dtype):
     return mk(hq, d), mk(hkv, d), mk(hkv, dv)
 
 
+def qkv_heads_last(seed, b, hq, hkv, s, d, dv, dtype):
+    """q, k, v as the model hands them over: (B, H, S, D) transposes of
+    contiguous (B, S, H, D) projections."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda h, w: torch.randn((b, s, h, w), generator=g, device="cuda").to(dtype)
+    return mk(hq, d).transpose(1, 2), mk(hkv, d).transpose(1, 2), mk(hkv, dv).transpose(1, 2)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -118,6 +138,20 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, n: int = 10) -> float:
+    """Device time per call of ``fn``: the sum of its kernels' time under
+    torch.profiler, without the host's gaps between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / n / 1e3
 
 
 def check(kernel: str, name: str, got, want, tol: float) -> dict:
@@ -165,14 +199,40 @@ def flash_vs_plain():
         ("hybrid fp32 (1,16,1,4096,256) window 2048", hy, torch.float32, True, win, 2e-5),
         ("hybrid forward S=16 fp32 window 2048", dict(hy, s=16), torch.float32, True, win, 2e-5),
     ]
+    cases += [
+        # D = 64 (whisper), and a window edge that falls inside a 128-row tile
+        ("bf16 D=64 (2,8,2,300,64)", dict(m, b=2, hq=8, s=300, d=64, dv=64), torch.bfloat16,
+         True, 0, 2e-2),
+        ("bf16 window=200 S=1000", dict(m, s=1000, dv=128), torch.bfloat16, True, 200, 2e-2),
+        ("bf16 D=64 window=200 S=1000", dict(m, hq=8, s=1000, d=64, dv=64), torch.bfloat16,
+         True, 200, 2e-2),
+    ]
     results = []
     for i, (name, shape, dtype, causal, window, tol) in enumerate(cases):
         q, k, v = qkv(SEED + i, **shape, dtype=dtype)
+        variant = fa.route(q, k, v)
+        wide = dtype == torch.bfloat16 and shape["d"] % 64 == 0 and shape["dv"] % 64 == 0
+        assert variant == ("wgmma" if wide else "cuda_core"), (name, variant)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = ref.attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        results.append(check("flash_attention", name, [got], [want], tol))
+        results.append(dict(check("flash_attention", f"{name} [{variant}]", [got], [want], tol),
+                            variant=variant))
+    # the model's own layout: transposed (B, S, H, D) views in, and out through
+    # a (B, S, H, Dv) allocation, so that neither side copies
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        b_, s_, h_, d_ = PREFILL["b"], PREFILL["s"], PREFILL["hq"], PREFILL["d"]
+        q, k, v = qkv_heads_last(SEED + 50 + i, **PREFILL, dv=d_, dtype=dtype)
+        variant = fa.route(q, k, v)
+        assert variant == ("wgmma" if dtype == torch.bfloat16 else "cuda_core"), variant
+        got = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert got.stride() == (s_ * h_ * d_, d_, h_ * d_, 1), got.stride()
+        want = ref.attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        name = f"prefill (2,16,2,512,128) {dtype} on (B,S,H,D) views [{variant}]"
+        results.append(dict(check("flash_attention", name, [got], [want], tol), variant=variant))
     return results
 
 
@@ -197,15 +257,26 @@ def ssd_vs_plain():
         ("single chunk L=256 fp32", dict(shape, L=256), m["chunk"], torch.float32, 2e-4),
         # the 16-token fp32 forward of phase 8: chunk = min(256, L)
         ("forward (1,16) fp32, chunk 16", dict(shape, B=1, L=16), 16, torch.float32, 2e-4),
+        # the tensor-core passes beyond the main shape: grouped B/C, a single
+        # chunk, and a bf16 prefill of L = 100 (chunk = min(256, L) = 100)
+        ("grouped G=2 bf16", dict(shape, L=512, G=2), m["chunk"], torch.bfloat16, 3e-2),
+        ("single chunk L=256 bf16", dict(shape, L=256), m["chunk"], torch.bfloat16, 3e-2),
+        ("Q=L=100 bf16", dict(shape, L=100), 100, torch.bfloat16, 3e-2),
+        # P % 16 != 0 in bf16: the CUDA-core kernel
+        ("bf16 P=40 (CUDA cores)", dict(shape, L=512, P=40), m["chunk"], torch.bfloat16, 3e-2),
     ]
     results = []
     for i, (name, sh, chunk, dtype, tol) in enumerate(cases):
         args = ssd_inputs(SEED + 100 + i, **sh, dtype=dtype)
+        variant = ss.route(*args, chunk)
+        fast = dtype == torch.bfloat16 and sh["P"] % 16 == 0
+        assert variant == ("tensor_core" if fast else "cuda_core"), (name, variant)
         got = ss.ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
         want = ref.ssd_sequential(*args)
         torch.cuda.synchronize()
-        results.append(check("ssd_scan", name, got, want, tol))
+        results.append(dict(check("ssd_scan", f"{name} [{variant}]", got, want, tol),
+                            variant=variant))
     return results
 
 
@@ -251,6 +322,7 @@ def flash_timing(device_line: str):
     m = MAIN
     q, k, v = qkv(SEED, **m, dv=m["d"], dtype=torch.bfloat16)
     kernel_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), iters=20)
+    dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=True))
     # the same inputs 2 bytes past an aligned start take the CUDA-core variant
     qu, ku, vu = (torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
                   .view(t.shape).copy_(t) for t in (q, k, v))
@@ -267,17 +339,39 @@ def flash_timing(device_line: str):
     nb = nbytes(q, k, v) + q.numel() * 2
     bound_ms, bound_by = bound(flops, nb, PEAK_BF16_FLOPS)
     log(f"  [{device_line}] flash_attention bf16 (1,16,2048,128) causal: kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+        f"{kernel_ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, {nb / 1e6:.2f} MB); "
         f"kernel at {flops / kernel_ms / 1e9:.1f} TFLOP/s = "
-        f"{100 * bound_ms / kernel_ms:.2f}% of the bf16 roofline, "
+        f"{100 * bound_ms / kernel_ms:.2f}% of the bf16 roofline, kernel / SDPA = "
+        f"{kernel_ms / library_ms:.3f}; "
         f"{flops / core_ms / 1e9:.1f} TFLOP/s on the CUDA-core variant ({core_ms:.4f} ms, "
         f"{100 * flops / core_ms / 1e9 / (PEAK_FP32_FLOPS / 1e12):.1f}% of the fp32 peak)")
+
+    # the model's own call in phase 4's prefill: transposed (B, S, H, D) views
+    pf = PREFILL
+    q, k, v = qkv_heads_last(SEED + 2, **pf, dv=pf["d"], dtype=torch.bfloat16)
+    pf_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), iters=50)
+    pf_dev = device_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    pf_plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), iters=10)
+    kr = ref.repeat_kv(k, pf["hq"])
+    vr = ref.repeat_kv(v, pf["hq"])
+    pf_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kr, vr, is_causal=True), iters=50)
+    pf_flops = 2.0 * pf["b"] * pf["hq"] * pf["s"] * (pf["s"] + 1) / 2 * (pf["d"] + pf["d"])
+    pf_bytes = nbytes(q, k, v) + q.numel() * 2
+    pf_bound, pf_by = bound(pf_flops, pf_bytes, PEAK_BF16_FLOPS)
+    log(f"  [{device_line}] flash_attention bf16 (2,16,2,512,128) causal on (B,S,H,D) views "
+        f"(the qwen prefill's call): kernel {pf_ms:.4f} ms (device {pf_dev:.4f} ms), plain {pf_plain:.4f} ms, SDPA "
+        f"{pf_lib:.4f} ms, bound {pf_bound:.4f} ms ({pf_by}: {pf_flops / 1e9:.3f} GFLOP, "
+        f"{pf_bytes / 1e6:.2f} MB); kernel at {pf_flops / pf_ms / 1e9:.1f} TFLOP/s = "
+        f"{100 * pf_bound / pf_ms:.2f}% of the bf16 roofline (device: "
+        f"{pf_flops / pf_dev / 1e9:.1f} TFLOP/s); kernel / SDPA = {pf_ms / pf_lib:.3f}")
 
     h = HYBRID
     q, k, v = qkv(SEED + 1, h["b"], h["hq"], h["hkv"], h["s"], h["d"], h["d"], torch.bfloat16)
     w = h["window"]
     hy_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=w), iters=10)
+    hy_dev = device_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=w))
     hy_plain = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True, window=w), iters=3)
     kr = ref.repeat_kv(k, h["hq"])
     vr = ref.repeat_kv(v, h["hq"])
@@ -292,14 +386,17 @@ def flash_timing(device_line: str):
     hy_bytes = nbytes(q, k, v) + q.numel() * 2
     hy_bound, hy_by = bound(hy_flops, hy_bytes, PEAK_BF16_FLOPS)
     log(f"  [{device_line}] flash_attention bf16 (1,16,1,4096,256) window 2048: kernel "
-        f"{hy_ms:.4f} ms, plain {hy_plain:.4f} ms, SDPA with a mask {hy_lib:.4f} ms, bound "
+        f"{hy_ms:.4f} ms (device {hy_dev:.4f} ms), plain {hy_plain:.4f} ms, SDPA with a mask {hy_lib:.4f} ms, bound "
         f"{hy_bound:.4f} ms ({hy_by}: {hy_flops / 1e9:.2f} GFLOP, {hy_bytes / 1e6:.2f} MB); "
         f"kernel at {hy_flops / hy_ms / 1e9:.1f} TFLOP/s = "
-        f"{100 * hy_bound / hy_ms:.2f}% of the bf16 roofline")
+        f"{100 * hy_bound / hy_ms:.2f}% of the bf16 roofline, kernel / SDPA = "
+        f"{hy_ms / hy_lib:.3f}")
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, cuda_core_ms=core_ms,
+                bound_by=bound_by, device_ms=dev_ms, cuda_core_ms=core_ms,
+                prefill=dict(ms=pf_ms, plain_ms=pf_plain, library_ms=pf_lib, bound_ms=pf_bound,
+                             bound_by=pf_by, device_ms=pf_dev),
                 hybrid=dict(ms=hy_ms, plain_ms=hy_plain, library_ms=hy_lib, bound_ms=hy_bound,
-                            bound_by=hy_by))
+                            bound_by=hy_by, device_ms=hy_dev))
 
 
 def ssd_timing(device_line: str):
@@ -307,6 +404,7 @@ def ssd_timing(device_line: str):
     B, L, H, P, G, N, Q = (m[k] for k in ("B", "L", "H", "P", "G", "N", "chunk"))
     args = ssd_inputs(SEED, B, L, H, P, G, N, dtype=torch.bfloat16)
     kernel_ms = cuda_ms(lambda: ss.ssd_scan(*args, chunk=Q), iters=10)
+    dev_ms = device_ms(lambda: ss.ssd_scan(*args, chunk=Q))
     plain_ms = cuda_ms(lambda: ref.ssd_chunked_ref(*args, Q), iters=3)
     # work the function needs per chunk: C B^T over the causal triangle once
     # per (batch, group), and per (batch, head) the gate times x dt over the
@@ -318,13 +416,15 @@ def ssd_timing(device_line: str):
     nb = nbytes(*args) + y_bytes + B * H * P * N * 4
     bound_ms, bound_by = bound(flops, nb, PEAK_BF16_FLOPS)
     log(f"  [{device_line}] ssd_scan (2,2048,24,64,G1,N128,Q256) bf16 x/B/C, fp32 dt/a: "
-        f"kernel {kernel_ms:.4f} ms, plain (chunked) {plain_ms:.4f} ms, library: none, "
+        f"kernel {kernel_ms:.4f} ms (device {dev_ms:.4f} ms), plain (chunked) "
+        f"{plain_ms:.4f} ms, library: none, "
         f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP at the bf16 rate, "
         f"{nb / 1e6:.2f} MB); {flops / kernel_ms / 1e9:.2f} TFLOP/s, "
-        f"{100 * bound_ms / kernel_ms:.2f}% of the roofline; "
-        f"{B * H * -(-P // 32)} blocks on 132 SMs")
+        f"{100 * bound_ms / kernel_ms:.2f}% of the roofline; variant "
+        f"{ss.route(*args, Q)}, {B * H * nc} blocks per chunk pass on 132 SMs")
+    profile_call(lambda: ss.ssd_scan(*args, chunk=Q), "one ssd_scan call", device_line)
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, device_ms=dev_ms)
 
 
 def rglru_timing(device_line: str):
@@ -338,7 +438,8 @@ def rglru_timing(device_line: str):
     log(f"  [{device_line}] rglru_scan (1,4096,4096) fp32: kernel {kernel_ms:.4f} ms, plain "
         f"(log-depth scan) {plain_ms:.4f} ms, library: none, bound {bound_ms:.4f} ms "
         f"({bound_by}: {nb / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP); "
-        f"{nb / kernel_ms / 1e6:.1f} GB/s, {100 * bound_ms / kernel_ms:.2f}% of the roofline")
+        f"{nb / kernel_ms / 1e6:.1f} GB/s, {flops / kernel_ms / 1e9:.3f} TFLOP/s, "
+        f"{100 * bound_ms / kernel_ms:.2f}% of the roofline")
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -360,20 +461,25 @@ def phase_prefill(model, params, batch: int, seq: int, device_line: str) -> dict
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
     launches = read_counts()
+    variants = read_variants()
     expected = expected_launches(model)
     assert launches == {k: 2 * n for k, n in expected.items()}, (launches, expected)
+    # the bf16 prefill runs on the redesigned variants, and only on them
+    assert variants["flash_attention"]["wgmma"] == launches["flash_attention"], variants
+    assert variants["ssd_scan"]["tensor_core"] == launches["ssd_scan"], variants
     assert logits.shape == (batch, cfg.padded_vocab)
     assert bool(torch.isfinite(logits[:, :cfg.vocab_size].float()).all()), "non-finite logits"
     shapes = {path: tuple(t.shape) for path, t in leaves(cache).items()}
     want = reference_cache_shapes(model, batch, seq)
     assert shapes == want, (shapes, want)
     log(f"  prefill ({batch}, {seq}): launches per call "
-        f"{ {k: n // 2 for k, n in launches.items()} }; cache {shapes}")
+        f"{ {k: n // 2 for k, n in launches.items()} }, by variant over both calls "
+        f"{variants}; cache {shapes}")
     log(f"  [{device_line}] wall {times[0]:.4f} s first call, {times[1]:.4f} s second")
     with torch.no_grad():
         profile_call(lambda: model.forward(params, {"tokens": tokens}, mode="prefill"),
                      f"one prefill ({batch}, {seq})", device_line)
-    return dict(launches=launches, wall_s=times)
+    return dict(launches=launches, variants=variants, wall_s=times)
 
 
 def expected_launches(model) -> dict:
@@ -439,6 +545,10 @@ def profile_call(fn, label: str, device_line: str) -> None:
     log(f"  profile [{device_line}] {label} under the profiler: wall {wall_us / 1e3:.3f} ms, "
         f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% of wall), "
         f"{sum(e.count for e in kernels)} kernel launches")
+    # copies (layout changes such as .contiguous()): PyTorch's copy kernels
+    copies = [e for e in kernels if "copy" in e.key.lower()]
+    log(f"    copy kernels: {sum(e.count for e in copies)} launches, "
+        f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {100 * e.self_device_time_total / busy_us:5.1f}%"
             f"  x{e.count:<4d} {e.key[:90]}")

@@ -5,6 +5,14 @@ The kernel (``csrc/flash_attention.cu``, CUDA C++ for sm_90a) replaces the
 Pallas TPU kernel of ``repro.kernels.flash_attention``. It is built with
 ``nvcc`` at first use and called through ``ctypes`` (see ``kernels.build``).
 
+The kernel has two variants, and :func:`route` picks one before the launch
+from what the inputs are: ``"wgmma"`` (TMA and wgmma, bf16 with head widths
+that are multiples of 64) or ``"cuda_core"`` (fp32 FMA, everything else).
+q, k and v may be any (B, H, S, D) views whose innermost stride is 1, such
+as the transposed (B, S, H, D) projections of the model; the output is a
+(B, H, S, Dv) view of a (B, S, H, Dv) allocation, so that the model's
+``transpose(1, 2).reshape`` copies nothing.
+
 On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor
 it computes the same function with the plain version,
 ``ref.attention_ref``.
@@ -28,7 +36,7 @@ MAX_HEAD_DIM = 256
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention", ["flash_attention.cu"])
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -39,12 +47,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be (B, H, S, D), got {tuple(t.shape)}")
-        if t.device != q.device:
+        if t is not q and t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.stride(3) != 1 and t.shape[3] != 1:
+            raise ValueError(f"flash_attention: {name} needs innermost stride 1, "
+                             f"got strides {t.stride()}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
                         f"(float32 or bfloat16)")
@@ -62,6 +71,38 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"[1, {MAX_HEAD_DIM}], got S={s} D={d} Dv={v.shape[3]}")
 
 
+def _strides(t: torch.Tensor) -> tuple:
+    """(batch, head, seq) element strides of a (B, H, S, D) view; a dimension
+    of extent 1 gets the stride a contiguous layout would give it (it is
+    never stepped, and TMA wants every stride a multiple of 16 bytes)."""
+    b, h, s, d = t.shape
+    sb, sh, ss, _ = t.stride()
+    return (sb if b > 1 else h * s * d, sh if h > 1 else s * d, ss if s > 1 else d)
+
+
+def _route(q, k, v, strides) -> str:
+    d, dv = q.shape[3], v.shape[3]
+    if q.dtype != torch.bfloat16 or d % 64 or dv % 64 or d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+        return "cuda_core"
+    for t, st in zip((q, k, v), strides):
+        # 8 bf16 elements are 16 bytes
+        if t.stride(3) != 1 or t.data_ptr() % 16 or st[0] % 8 or st[1] % 8 or st[2] % 8:
+            return "cuda_core"
+    return "wgmma"
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which variant of the kernel takes these inputs: ``"wgmma"`` for bf16
+    with D and Dv multiples of 64 up to 256 whose storage TMA can address
+    (16-byte aligned bases and strides, innermost stride 1), else
+    ``"cuda_core"``. Decided from the inputs alone, before any launch."""
+    return _route(q, k, v, [_strides(t) for t in (q, k, v)])
+
+
+_VARIANTS = {"cuda_core": 0, "wgmma": 1}
+_STRIDES = ctypes.c_longlong * 12
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -71,7 +112,10 @@ def flash_attention(
     window: int = 0,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """q: (B, Hq, S, D); k: (B, Hkv, S, D); v: (B, Hkv, S, Dv) -> (B, Hq, S, Dv)."""
+    """q: (B, Hq, S, D); k: (B, Hkv, S, D); v: (B, Hkv, S, Dv) -> (B, Hq, S, Dv).
+
+    On the card the result is a (B, Hq, S, Dv) view of a (B, S, Hq, Dv)
+    tensor."""
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
@@ -80,18 +124,26 @@ def flash_attention(
     b, hq, s, d = q.shape
     hkv, dv = k.shape[1], v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    out = torch.empty((b, hq, s, dv), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = (_strides(q), _strides(k), _strides(v))
+    variant = _route(q, k, v, strides)
+    out_strides = (s * hq * dv, dv, hq * dv)
+    out = torch.empty_strided((b, hq, s, dv), out_strides + (1,), dtype=q.dtype,
+                              device=q.device)
     err = _lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, hq, hkv, s, d, dv, scale, int(causal), int(window),
+        _STRIDES(*strides[0], *strides[1], *strides[2], *out_strides),
+        _DTYPE_CODES[q.dtype], _VARIANTS[variant], b, hq, hkv, s, d, dv, scale,
+        int(causal), int(window),
         q.device.index if q.device.index is not None else torch.cuda.current_device(),
-        stream)
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.by_variant[variant] += 1
     return out
 
 
 #: kernel launches since the last reset (CPU calls do not count)
 flash_attention.launches = 0
+#: the same launches by variant
+flash_attention.by_variant = {"cuda_core": 0, "wgmma": 0}

@@ -85,8 +85,8 @@ def attention(
     if impl == "torch":
         return _attention_chunked(q, k, v, causal=causal, window=window, scale=scale)
     _check_kernel_impl(impl, "attention", q)
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, window=window, scale=scale)
+    # the kernel reads strided (B, H, S, D) views as they are: no copies
+    return flash_attention(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def decode_attention(

@@ -4,6 +4,13 @@ The kernel (``csrc/ssd_scan.cu``, CUDA C++ for sm_90a) replaces the Pallas
 TPU kernel of ``repro.kernels.ssd_scan``. It is built with ``nvcc`` at first
 use and called through ``ctypes`` (see ``kernels.build``).
 
+The kernel has two variants, and :func:`route` picks one before the launch
+from what the inputs are: ``"tensor_core"`` (bf16 x/B/C with fp32 dt/a: three
+chunk-parallel passes, so one wrapper call launches three CUDA kernels) or
+``"cuda_core"`` (the sequential-chunk fp32 kernel, everything else). The
+tensor-core passes keep the chunk states in fp32 scratch that the wrapper
+allocates.
+
 On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor
 it computes the same function with the plain version,
 ``ref.ssd_chunked_ref``.
@@ -20,14 +27,18 @@ from repro_torch.kernels import build, ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 128
+#: the tensor-core passes' limits: head and state widths held in registers,
+#: query slabs of a chunk, and the shared memory of the chunk-scan block
+TC_MAX_P, TC_MAX_N, TC_MAX_Q, SMEM_BYTES = 64, 128, 256, 232448
+_VARIANTS = {"cuda_core": 0, "tensor_core": 1}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan", ["ssd_scan.cu"])
     fn = lib.ssd_scan_fwd
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -59,6 +70,33 @@ def _check(x, dt, a, b_mat, c_mat) -> None:
         raise ValueError(f"ssd_scan: batch {B} above the grid's 65535")
 
 
+def _scan_smem(P: int, N: int, chunk: int) -> int:
+    """Shared memory of the chunk-scan block (``tc_scan_smem`` in the source):
+    C, B and x of the chunk and the state's bf16 halves, rows padded by 8."""
+    qp = -(-chunk // 16) * 16
+    return 2 * (2 * qp * (N + 8) + qp * (P + 8) + 2 * P * (N + 8)) + 8 * qp
+
+
+def route(x, dt, a, b_mat, c_mat, chunk: int) -> str:
+    """Which variant takes these inputs: ``"tensor_core"`` for bf16 x, B, C
+    with fp32 dt and a (the model's dtypes), P and N multiples of 16 up to
+    64 and 128, a chunk of at most 256 whose block fits in shared memory and
+    16-byte aligned x, B, C; else ``"cuda_core"``. Decided from the inputs
+    alone, before any launch."""
+    P, N = x.shape[3], b_mat.shape[3]
+    if (x.dtype, b_mat.dtype, c_mat.dtype) != (torch.bfloat16,) * 3:
+        return "cuda_core"
+    if (dt.dtype, a.dtype) != (torch.float32,) * 2:
+        return "cuda_core"
+    if P % 16 or P > TC_MAX_P or N % 16 or N > TC_MAX_N or chunk > TC_MAX_Q:
+        return "cuda_core"
+    if _scan_smem(P, N, chunk) > SMEM_BYTES:
+        return "cuda_core"
+    if any(t.data_ptr() % 16 for t in (x, b_mat, c_mat)):
+        return "cuda_core"
+    return "tensor_core"
+
+
 def ssd_scan(
     x: torch.Tensor,
     dt: torch.Tensor,
@@ -86,19 +124,32 @@ def ssd_scan(
     G, N = b_mat.shape[2], b_mat.shape[3]
     y = torch.empty_like(x)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    variant = route(x, dt, a, b_mat, c_mat, chunk)
+    nc = L // chunk
+    if variant == "tensor_core":   # each chunk's own state, then the state entering it
+        states = torch.empty((B, H, nc, P, N), dtype=torch.float32, device=x.device)
+        ltot = torch.empty((B, H, nc), dtype=torch.float32, device=x.device)
+        scratch = [states.data_ptr(), ltot.data_ptr()]
+    else:
+        scratch = [None, None]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     args = []
     for t in (x, dt, a, b_mat, c_mat):
         args += [t.data_ptr(), _DTYPE_CODES[t.dtype]]
     err = _lib().ssd_scan_fwd(
-        *args, y.data_ptr(), h.data_ptr(), B, L, H, P, G, N, chunk,
+        *args, y.data_ptr(), h.data_ptr(), *scratch, _VARIANTS[variant],
+        B, L, H, P, G, N, chunk,
         x.device.index if x.device.index is not None else torch.cuda.current_device(),
         stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed with CUDA error {err}")
     ssd_scan.launches += 1
+    ssd_scan.by_variant[variant] += 1
     return y, h
 
 
-#: kernel launches since the last reset (CPU calls do not count)
+#: wrapper calls that launched the kernel since the last reset (CPU calls do
+#: not count); the tensor-core variant's three passes count once
 ssd_scan.launches = 0
+#: the same launches by variant
+ssd_scan.by_variant = {"cuda_core": 0, "tensor_core": 0}

@@ -7,9 +7,12 @@ interpret mode, on the shapes and masks of ``tests/test_kernels.py``, at that
 file's tolerances (2e-5 fp32, 2e-2 bf16). Inputs are drawn once with numpy
 and handed to both packages.
 
+The routing of the flash and SSD kernels between their variants is plain
+Python, pinned here on the CPU.
+
 Card tests (marker ``gpu``): each CUDA kernel (flash attention, the SSD
-scan, the RG-LRU scan) against its plain version on the card, at the
-reference's tolerances (2e-4 fp32 / 3e-2 bf16 for the SSD scan, 2e-5 / 3e-2
+scan, the RG-LRU scan) against its plain version on the card, with the
+variant each case takes, at the reference's tolerances (2e-4 fp32 / 3e-2 bf16 for the SSD scan, 2e-5 / 3e-2
 for the RG-LRU scan). They skip where no CUDA device is present. The CPU
 tests of the two scans are in ``test_torch_ssm.py`` and
 ``test_torch_rglru.py``.
@@ -148,6 +151,92 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
         fa._check(q, k, v)
 
 
+def _heads_last(t):
+    """A (B, H, S, D) tensor as the model hands it over: the (B, H, S, D)
+    transpose of a contiguous (B, S, H, D) tensor."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def test_check_accepts_the_models_strided_views():
+    q, k, v = (_heads_last(t) for t in _to_torch(_qkv_np(4, 2, 4, 2, 64, 32), "float32"))
+    assert not q.is_contiguous() and q.stride(3) == 1
+    fa._check(q, k, v)
+
+
+def test_attention_on_strided_views_matches_contiguous():
+    """``ops.attention`` takes the transposed views without copying them; on
+    the CPU it is the plain path, held against the oracle on contiguous
+    copies."""
+    q, k, v = _to_torch(_qkv_np(6, 2, 4, 2, 96, 32), "float32")
+    qh, kh, vh = (_heads_last(t) for t in (q, k, v))
+    got = ops.attention(qh, kh, vh, causal=True, window=40)
+    want = ref.attention_ref(q, k, v, causal=True, window=40)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+def _unaligned(t):
+    """The same values 2 bytes past a 16-byte aligned start."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return view.copy_(t)
+
+
+FLASH_ROUTES = [
+    # (dtype, D, Dv, layout, variant)
+    ("bfloat16", 128, 128, "contiguous", "wgmma"),
+    ("bfloat16", 128, 128, "heads_last", "wgmma"),    # the model's transposed views
+    ("bfloat16", 64, 64, "contiguous", "wgmma"),      # whisper
+    ("bfloat16", 192, 128, "heads_last", "wgmma"),    # MLA
+    ("bfloat16", 256, 256, "contiguous", "wgmma"),    # recurrentgemma
+    ("float32", 128, 128, "contiguous", "cuda_core"),
+    ("float32", 128, 128, "heads_last", "cuda_core"),
+    ("bfloat16", 72, 40, "contiguous", "cuda_core"),
+    ("bfloat16", 32, 32, "contiguous", "cuda_core"),
+    ("bfloat16", 128, 128, "unaligned", "cuda_core"),
+    ("bfloat16", 128, 128, "row_stride_132", "cuda_core"),  # 264-byte rows
+]
+
+
+@pytest.mark.parametrize("dtype,d,dv,layout,variant", FLASH_ROUTES)
+def test_flash_route(dtype, d, dv, layout, variant):
+    q, k, v = _to_torch(_qkv_np(1, 1, 4, 2, 40, d, dv), dtype)
+    if layout == "heads_last":
+        q, k, v = (_heads_last(t) for t in (q, k, v))
+    elif layout == "unaligned":
+        q, k, v = (_unaligned(t) for t in (q, k, v))
+    elif layout == "row_stride_132":
+        q = torch.zeros(1, 4, 40, d + 4, dtype=q.dtype)[..., :d]
+    fa._check(q, k, v)
+    assert fa.route(q, k, v) == variant
+
+
+SSD_ROUTES = [
+    # (x/B/C dtype, dt/a dtype, P, N, chunk, layout, variant)
+    ("bfloat16", "float32", 64, 128, 256, "aligned", "tensor_core"),   # mamba2-130m
+    ("bfloat16", "float32", 64, 128, 100, "aligned", "tensor_core"),   # L = 100 prefill
+    ("bfloat16", "float32", 32, 32, 64, "aligned", "tensor_core"),
+    ("float32", "float32", 64, 128, 256, "aligned", "cuda_core"),
+    ("bfloat16", "bfloat16", 64, 128, 256, "aligned", "cuda_core"),
+    ("bfloat16", "float32", 40, 128, 100, "aligned", "cuda_core"),     # P % 16
+    ("bfloat16", "float32", 128, 64, 64, "aligned", "cuda_core"),      # P > 64
+    ("bfloat16", "float32", 64, 36, 64, "aligned", "cuda_core"),       # N % 16
+    ("bfloat16", "float32", 64, 128, 512, "aligned", "cuda_core"),     # chunk > 256
+    ("bfloat16", "float32", 64, 128, 256, "unaligned", "cuda_core"),
+]
+
+
+@pytest.mark.parametrize("xdt,dtdt,P,N,chunk,layout,variant", SSD_ROUTES)
+def test_ssd_route(xdt, dtdt, P, N, chunk, layout, variant):
+    x = torch.zeros(1, chunk, 2, P, dtype=getattr(torch, xdt))
+    bm = torch.zeros(1, chunk, 1, N, dtype=getattr(torch, xdt))
+    cm = torch.zeros_like(bm)
+    dt = torch.zeros(1, chunk, 2, dtype=getattr(torch, dtdt))
+    a = torch.zeros(2, dtype=getattr(torch, dtdt))
+    if layout == "unaligned":
+        x = _unaligned(x)
+    ss._check(x, dt, a, bm, cm)
+    assert ss.route(x, dt, a, bm, cm, chunk) == variant
+
+
 # --- on the card ------------------------------------------------------------
 
 GPU_CASES = [
@@ -168,7 +257,17 @@ GPU_CASES = [
     # recurrentgemma local attention: D = 256, one kv head, sliding window
     (1, 16, 1, 640, 256, 256, True, 256, "bfloat16"),
     (1, 16, 1, 640, 256, 256, True, 256, "float32"),
+    # D = 64 (whisper), and a window edge that falls inside a 128-row tile
+    (2, 8, 2, 300, 64, 64, True, 0, "bfloat16"),
+    (1, 8, 2, 1000, 64, 64, True, 200, "bfloat16"),
+    (1, 16, 2, 1000, 128, 128, True, 200, "bfloat16"),
 ]
+
+
+def _flash_variant(q, v):
+    """The variant a contiguous, aligned input should take."""
+    wide = q.dtype == torch.bfloat16 and q.shape[3] % 64 == 0 and v.shape[3] % 64 == 0
+    return "wgmma" if wide else "cuda_core"
 
 
 @pytest.mark.gpu
@@ -178,6 +277,7 @@ def test_kernel_matches_plain_on_card(case):
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     b, hq, hkv, s, d, dv, causal, window, dtype = case
     q, k, v = _to_torch(_qkv_np(s + d, b, hq, hkv, s, d, dv), dtype, device="cuda")
+    assert fa.route(q, k, v) == _flash_variant(q, v)
     before = fa.flash_attention.launches
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -187,18 +287,36 @@ def test_kernel_matches_plain_on_card(case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kernel_on_the_models_strided_views(dtype):
+    """The transposed (B, S, H, D) views the model hands over are read as
+    they are, and the output is a (B, H, S, Dv) view of a (B, S, H, Dv)
+    tensor, so the model's ``transpose(1, 2).reshape`` copies nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b, hq, hkv, s, d = 2, 16, 2, 520, 128
+    q, k, v = _to_torch(_qkv_np(12, b, hq, hkv, s, d), dtype, device="cuda")
+    qh, kh, vh = (_heads_last(t) for t in (q, k, v))
+    assert fa.route(qh, kh, vh) == ("wgmma" if dtype == "bfloat16" else "cuda_core")
+    got = ops.attention(qh, kh, vh, causal=True)
+    torch.cuda.synchronize()
+    assert got.shape == (b, hq, s, d)
+    assert got.stride() == (s * hq * d, d, hq * d, 1)
+    assert got.transpose(1, 2).is_contiguous()
+    want = ref.attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
 def test_kernel_on_unaligned_bf16_views():
     """A contiguous view that is not 16-byte aligned takes the CUDA-core
     variant and agrees all the same."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    def unaligned(t):   # the same values, 2 bytes past an aligned start
-        view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
-        return view.copy_(t)
-
-    q, k, v = (unaligned(t) for t in _to_torch(_qkv_np(9, 1, 4, 2, 256, 64), "bfloat16",
-                                               device="cuda"))
+    q, k, v = (_unaligned(t) for t in _to_torch(_qkv_np(9, 1, 4, 2, 256, 64), "bfloat16",
+                                                device="cuda"))
     assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    assert fa.route(q, k, v) == "cuda_core"
     got = fa.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     want = ref.attention_ref(q, k, v, causal=True)
@@ -215,6 +333,14 @@ SSD_GPU_CASES = [
     (2, 512, 4, 64, 1, 128, 256, "float32"),   # mamba2-130m's P, N and chunk
     (2, 512, 4, 64, 1, 128, 256, "bfloat16"),
     (1, 256, 4, 64, 2, 32, 128, "bfloat16"),
+    # the tensor-core passes: grouped B/C, a single chunk, and Q = L = 100
+    (1, 512, 4, 64, 2, 128, 256, "bfloat16"),
+    (2, 256, 4, 64, 1, 128, 256, "bfloat16"),
+    (2, 100, 4, 64, 1, 128, 100, "bfloat16"),
+    # other compiled widths of the chunk scan: P = 16, 32, 48; N = 16, 64, 80
+    (1, 64, 2, 16, 1, 16, 32, "bfloat16"),
+    (1, 128, 2, 32, 1, 64, 64, "bfloat16"),
+    (2, 96, 3, 48, 1, 80, 48, "bfloat16"),
 ]
 
 
@@ -239,6 +365,9 @@ def test_ssd_kernel_matches_plain_on_card(case):
     wide = getattr(torch, dtype)
     x, bm, cm = (torch.from_numpy(t).to("cuda", wide) for t in (x, bm, cm))
     dt, a = torch.from_numpy(dt).cuda(), torch.from_numpy(a).cuda()
+    P, N = shape[3], shape[5]
+    fast = dtype == "bfloat16" and P % 16 == 0 and N % 16 == 0 and P <= 64
+    assert ss.route(x, dt, a, bm, cm, chunk) == ("tensor_core" if fast else "cuda_core")
     before = ss.ssd_scan.launches
     y, h = ss.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
     torch.cuda.synchronize()
