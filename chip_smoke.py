@@ -16,9 +16,12 @@ Phases (any failure exits non-zero):
   1. card name and power limit; build the kernels (one nvcc each, together)
   2. each kernel against its plain version on the card, with the variant
      each case takes (flash: wgmma or CUDA cores; SSD: tensor-core passes
-     or CUDA cores), the model's strided (B, S, H, D) views included
+     or CUDA cores), the model's strided (B, S, H, D) views included; the
+     RG-LRU scan also with long memory (a in [0.99, 1) and a = 1), against
+     an fp64 loop too
   3. timing at the main-path shapes (CUDA events), TFLOP/s and share of the
-     bound of each kernel; flash also at the qwen prefill's own call
+     bound of each kernel; flash also at the qwen prefill's own call; the
+     RG-LRU scan in fp32 and bf16 beside a same-bytes torch.add pass
   4-6. qwen2.5-3b: prefill (launches, finite logits, profile with its count
      of copy kernels), fp32
      prefill-vs-decode consistency (bound 2e-3), serving 8 requests
@@ -280,29 +283,64 @@ def ssd_vs_plain():
     return results
 
 
-def rglru_inputs(seed, B, L, W, dtype=torch.float32):
+def rglru_inputs(seed, B, L, W, dtype=torch.float32, a_from="sigmoid"):
+    """a from sigmoid(randn) (the state forgets in tens of steps), uniform in
+    [0.99, 1) (a carry lives for hundreds of steps) or exactly 1 (a prefix
+    sum); b from 0.5 randn."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    a = torch.sigmoid(torch.randn((B, L, W), generator=g, device="cuda")).to(dtype)
-    return a, (torch.randn((B, L, W), generator=g, device="cuda") * 0.5).to(dtype)
+    shape = (B, L, W)
+    if a_from == "sigmoid":
+        a = torch.sigmoid(torch.randn(shape, generator=g, device="cuda"))
+    elif a_from == "[0.99, 1)":
+        a = 0.99 + 0.01 * torch.rand(shape, generator=g, device="cuda")
+    else:
+        assert a_from == "1", a_from
+        a = torch.ones(shape, device="cuda")
+    return a.to(dtype), (torch.randn(shape, generator=g, device="cuda") * 0.5).to(dtype)
+
+
+def share_of_tol(got, want, tol: float) -> float:
+    """max |got - want| / (tol (1 + |want|)): at most 1 where allclose holds."""
+    want = want.double()
+    return float(((got.double() - want).abs() / (tol * (1 + want.abs()))).max())
 
 
 def rglru_vs_plain():
-    """The RG-LRU kernel against the plain log-depth scan."""
+    """The RG-LRU kernel against the plain log-depth scan; the long-memory
+    cases (L over many 256-step tiles with a ragged tail) also against an
+    fp64 loop, so that a carry lost between tiles shows."""
     m = RGLRU_MAIN
+    long_l = dict(m, L=4096 + 37)
     cases = [
-        ("main (1,4096,4096) fp32", m, torch.float32, 2e-5),
-        ("main shape bf16 a and b", m, torch.bfloat16, 3e-2),
-        ("ragged L=1000 fp32", dict(m, L=1000), torch.float32, 2e-5),
-        ("L=1 fp32", dict(m, L=1), torch.float32, 2e-5),
+        ("main (1,4096,4096) fp32", m, torch.float32, "sigmoid", 2e-5),
+        ("main shape bf16 a and b", m, torch.bfloat16, "sigmoid", 3e-2),
+        ("ragged L=1000 fp32", dict(m, L=1000), torch.float32, "sigmoid", 2e-5),
+        ("L=1 fp32", dict(m, L=1), torch.float32, "sigmoid", 2e-5),
         # the 16-token fp32 forward of phase 11
-        ("forward (1,16,4096) fp32", dict(m, L=16), torch.float32, 2e-5),
+        ("forward (1,16,4096) fp32", dict(m, L=16), torch.float32, "sigmoid", 2e-5),
+        ("long memory (1,4133,40) fp32, a in [0.99, 1)", dict(long_l, W=40), torch.float32,
+         "[0.99, 1)", 2e-5),
+        ("long memory (1,4133,4096) fp32, a in [0.99, 1)", long_l, torch.float32,
+         "[0.99, 1)", 2e-5),
+        ("long memory (1,4133,40) fp32, a = 1", dict(long_l, W=40), torch.float32, "1", 2e-5),
+        ("long memory (1,4133,4096) fp32, a = 1", long_l, torch.float32, "1", 2e-5),
+        ("long memory (1,4133,4096) bf16 a and b, a in [0.99, 1)", long_l, torch.bfloat16,
+         "[0.99, 1)", 3e-2),
     ]
     results = []
-    for i, (name, sh, dtype, tol) in enumerate(cases):
-        a, b = rglru_inputs(SEED + 200 + i, **sh, dtype=dtype)
+    for i, (name, sh, dtype, a_from, tol) in enumerate(cases):
+        a, b = rglru_inputs(SEED + 200 + i, **sh, dtype=dtype, a_from=a_from)
         got = rg.rglru_scan(a, b)
         torch.cuda.synchronize()
-        results.append(check("rglru_scan", name, [got], [ref.rglru_ref(a, b)], tol))
+        want = ref.rglru_ref(a, b)
+        results.append(check("rglru_scan", name, [got], [want], tol))
+        if a_from != "sigmoid":
+            exact = ref.rglru_sequential(a, b)
+            k_err, p_err = share_of_tol(got, exact, tol), share_of_tol(want, exact, tol)
+            log(f"    against an fp64 loop, as a share of {tol:g} (1 + |h|): kernel "
+                f"{k_err:.3f}, plain {p_err:.3f}; kernel against plain "
+                f"{share_of_tol(got, want, tol):.3f}")
+            results[-1].update(kernel_vs_fp64=k_err, plain_vs_fp64=p_err)
     return results
 
 
@@ -428,20 +466,31 @@ def ssd_timing(device_line: str):
 
 
 def rglru_timing(device_line: str):
-    m = RGLRU_MAIN
-    a, b = rglru_inputs(SEED, **m)
-    kernel_ms = cuda_ms(lambda: rg.rglru_scan(a, b), iters=10)
-    plain_ms = cuda_ms(lambda: ref.rglru_ref(a, b), iters=3)
-    flops = 2.0 * a.numel()                   # one multiply-add per element
-    nb = nbytes(a, b) + b.numel() * b.element_size()
-    bound_ms, bound_by = bound(flops, nb, PEAK_FP32_FLOPS)
-    log(f"  [{device_line}] rglru_scan (1,4096,4096) fp32: kernel {kernel_ms:.4f} ms, plain "
-        f"(log-depth scan) {plain_ms:.4f} ms, library: none, bound {bound_ms:.4f} ms "
-        f"({bound_by}: {nb / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP); "
-        f"{nb / kernel_ms / 1e6:.1f} GB/s, {flops / kernel_ms / 1e9:.3f} TFLOP/s, "
-        f"{100 * bound_ms / kernel_ms:.2f}% of the roofline")
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by)
+    """fp32 and bf16 at the main shape, each beside torch.add(a, b): an
+    elementwise pass that moves the same bytes, as a yardstick of the
+    bandwidth a kernel can reach (it computes another function, so it is no
+    library_ms)."""
+    out = {}
+    for key, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        a, b = rglru_inputs(SEED, **RGLRU_MAIN, dtype=dtype)
+        add_ms = cuda_ms(lambda: torch.add(a, b), iters=50)
+        kernel_ms = cuda_ms(lambda: rg.rglru_scan(a, b), iters=50)
+        add_ms = (add_ms + cuda_ms(lambda: torch.add(a, b), iters=50)) / 2
+        dev_ms = device_ms(lambda: rg.rglru_scan(a, b))
+        plain_ms = cuda_ms(lambda: ref.rglru_ref(a, b), iters=3)
+        flops = 2.0 * a.numel()                   # one multiply-add per element
+        nb = nbytes(a, b) + b.numel() * b.element_size()
+        bound_ms, bound_by = bound(flops, nb, PEAK_FP32_FLOPS)
+        log(f"  [{device_line}] rglru_scan (1,4096,4096) {key}: kernel {kernel_ms:.4f} ms "
+            f"(device {dev_ms:.4f} ms), plain (log-depth scan) {plain_ms:.4f} ms, library: "
+            f"none, bound {bound_ms:.4f} ms ({bound_by}: {nb / 1e6:.2f} MB, "
+            f"{flops / 1e6:.1f} MFLOP); {nb / kernel_ms / 1e6:.1f} GB/s, "
+            f"{100 * bound_ms / kernel_ms:.2f}% of the roofline; same-bytes elementwise "
+            f"pass torch.add(a, b) {add_ms:.4f} ms ({nb / add_ms / 1e6:.1f} GB/s): the kernel "
+            f"reaches {100 * add_ms / kernel_ms:.2f}% of its rate")
+        out[key] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                        bound_by=bound_by, device_ms=dev_ms, same_bytes_add_ms=add_ms)
+    return dict(out["fp32"], bf16=out["bf16"])
 
 
 def phase_prefill(model, params, batch: int, seq: int, device_line: str) -> dict:
@@ -549,7 +598,10 @@ def profile_call(fn, label: str, device_line: str) -> None:
     copies = [e for e in kernels if "copy" in e.key.lower()]
     log(f"    copy kernels: {sum(e.count for e in copies)} launches, "
         f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # the eight largest, and this repo's kernels wherever they rank
+    ours = [e for e in ranked[8:] if any(k in e.key for k in ("flash_fwd", "ssd_", "rglru_fwd"))]
+    for e in ranked[:8] + ours:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {100 * e.self_device_time_total / busy_us:5.1f}%"
             f"  x{e.count:<4d} {e.key[:90]}")
 

@@ -164,3 +164,18 @@ def rglru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         af = torch.cat([af[:, :shift], af[:, shift:] * af[:, :-shift]], 1)
         shift *= 2
     return bf.to(b.dtype)
+
+
+def rglru_sequential(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU recurrence as a loop over time in fp64: (B, L, W) -> fp64.
+
+    The near-exact yardstick for long memory (a near 1), where every fp32
+    order of the sum, :func:`rglru_ref`'s included, keeps its rounding.
+    """
+    ad, bd = a.double(), b.double()
+    h = torch.zeros_like(bd[:, 0])
+    out = torch.empty_like(bd)
+    for t in range(a.shape[1]):
+        h = ad[:, t] * h + bd[:, t]
+        out[:, t] = h
+    return out

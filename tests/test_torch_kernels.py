@@ -13,7 +13,8 @@ Python, pinned here on the CPU.
 Card tests (marker ``gpu``): each CUDA kernel (flash attention, the SSD
 scan, the RG-LRU scan) against its plain version on the card, with the
 variant each case takes, at the reference's tolerances (2e-4 fp32 / 3e-2 bf16 for the SSD scan, 2e-5 / 3e-2
-for the RG-LRU scan). They skip where no CUDA device is present. The CPU
+for the RG-LRU scan, whose long-memory cases are also held against an fp64
+loop). They skip where no CUDA device is present. The CPU
 tests of the two scans are in ``test_torch_ssm.py`` and
 ``test_torch_rglru.py``.
 """
@@ -380,24 +381,42 @@ def test_ssd_kernel_matches_plain_on_card(case):
 
 
 RGLRU_GPU_CASES = [
-    # (B, L, W, dtype of a, dtype of b)
-    (1, 128, 64, "float32", "float32"),
-    (2, 256, 128, "float32", "float32"),
-    (1, 1000, 96, "float32", "float32"),     # ragged L
-    (2, 1, 64, "float32", "float32"),        # L = 1
-    (1, 128, 64, "bfloat16", "bfloat16"),
-    (1, 300, 40, "float32", "bfloat16"),
+    # (B, L, W, dtype of a, dtype of b, a drawn from)
+    (1, 128, 64, "float32", "float32", "sigmoid"),
+    (2, 256, 128, "float32", "float32", "sigmoid"),
+    (1, 1000, 96, "float32", "float32", "sigmoid"),     # ragged L
+    (2, 1, 64, "float32", "float32", "sigmoid"),        # L = 1
+    (1, 128, 64, "bfloat16", "bfloat16", "sigmoid"),
+    (1, 300, 40, "float32", "bfloat16", "sigmoid"),
+    # long memory: a carry lives for hundreds of steps (a in [0.99, 1)) or
+    # for ever (a = 1, a prefix sum), over 16 tiles of 256 steps and a
+    # ragged tail, so a carry dropped or misapplied between tiles shows
+    (1, 4096 + 37, 40, "float32", "float32", "[0.99, 1)"),
+    (1, 4096 + 37, 4096, "float32", "float32", "[0.99, 1)"),
+    (1, 4096 + 37, 40, "float32", "float32", "1"),
+    (1, 4096 + 37, 4096, "float32", "float32", "1"),
+    (1, 4096 + 37, 4096, "bfloat16", "bfloat16", "[0.99, 1)"),
 ]
+
+
+def _rglru_a_np(rng, shape, a_from):
+    if a_from == "sigmoid":
+        return 1.0 / (1.0 + np.exp(-rng.standard_normal(shape, dtype=np.float32)))
+    if a_from == "[0.99, 1)":
+        return rng.uniform(0.99, 1.0, shape).astype(np.float32)
+    return np.ones(shape, np.float32)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", RGLRU_GPU_CASES)
 def test_rglru_kernel_matches_plain_on_card(case):
+    """Against the plain log-depth scan; with long memory also against an
+    fp64 loop, at the same tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    B, L, W, a_dtype, b_dtype = case
+    B, L, W, a_dtype, b_dtype, a_from = case
     rng = np.random.default_rng(B + L + W)
-    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, L, W), dtype=np.float32)))
+    a = _rglru_a_np(rng, (B, L, W), a_from)
     b = rng.standard_normal((B, L, W), dtype=np.float32) * 0.5
     a = torch.from_numpy(a).to("cuda", getattr(torch, a_dtype))
     b = torch.from_numpy(b).to("cuda", getattr(torch, b_dtype))
@@ -408,3 +427,6 @@ def test_rglru_kernel_matches_plain_on_card(case):
     assert h.dtype == b.dtype
     tol = 2e-5 if b_dtype == a_dtype == "float32" else 3e-2
     np.testing.assert_allclose(_np(h), _np(ref.rglru_ref(a, b)), rtol=tol, atol=tol)
+    if a_from != "sigmoid":
+        exact = ref.rglru_sequential(a, b).cpu().numpy()
+        np.testing.assert_allclose(_np(h), exact, rtol=tol, atol=tol)

@@ -3,7 +3,9 @@ recurrence (``ops.rglru``, which on a CPU tensor runs ``ref.rglru_ref``)
 against the reference's associative scan at the tolerances of
 ``tests/test_kernels.py`` (2e-5 fp32, 3e-2 bf16), a ragged L that the
 reference's Pallas path would reject, one case against the Pallas kernel in
-interpret mode, and the recurrent block's layer functions at 1e-4. Inputs
+interpret mode, the oracle itself with long memory (a near or equal to 1)
+against the reference and an fp64 loop, and the recurrent block's layer
+functions at 1e-4. Inputs
 are drawn with numpy and handed to both packages; parameters come from the
 reference's builder through ``from_jax``.
 """
@@ -73,6 +75,30 @@ def test_rglru_log_depth_scan_equals_a_loop():
         h = a[:, t] * h + b[:, t]
         want.append(h)
     _close(ref.rglru_ref(a, b), torch.stack(want, 1).numpy(), 1e-6)
+
+
+@pytest.mark.parametrize("a_from", ["[0.99, 1)", "1"])
+def test_rglru_oracle_with_long_memory(a_from):
+    """The oracle that the card holds the kernel against, pinned where a
+    carry lasts hundreds of steps (a in [0.99, 1)) or for ever (a = 1, a
+    prefix sum): against the reference's associative scan and an fp64 loop
+    at 2e-5. ``ref.rglru_sequential``, the card's fp64 yardstick, equals
+    the loop."""
+    rng = np.random.default_rng(600)
+    shape = (1, 600, 16)
+    a = (rng.uniform(0.99, 1.0, shape).astype(np.float32) if a_from == "[0.99, 1)"
+         else np.ones(shape, np.float32))
+    b = rng.standard_normal(shape, dtype=np.float32) * 0.5
+    h, exact = np.zeros((1, 16)), np.empty(shape)
+    for t in range(shape[1]):
+        h = a[:, t].astype(np.float64) * h + b[:, t]
+        exact[:, t] = h
+    got = ref.rglru_ref(torch.from_numpy(a), torch.from_numpy(b))
+    want = jax.jit(lambda a, b: ref_ops.rglru(a, b, impl="xla"))(jnp.asarray(a), jnp.asarray(b))
+    _close(got, want, 2e-5)
+    _close(got, exact, 2e-5)
+    seq = ref.rglru_sequential(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(seq.numpy(), exact, rtol=1e-12, atol=0)
 
 
 def test_rglru_dispatch_and_wrapper_checks():
