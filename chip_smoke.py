@@ -6,11 +6,13 @@ hand-written Hopper flash-attention kernel; mamba2-130m (SSM; 24 layers,
 d_model 768) through the SSD-scan kernel; recurrentgemma-9b (hybrid; 38
 layers, d_model 4096) through the RG-LRU-scan kernel and the flash kernel's
 local window. Each model is prefilled and served greedily through the AMP4EC
-NSA scheduler. The script builds every kernel from the sources in the
-checkout, holds each against its plain PyTorch version on the card, times it
-beside its bound, its plain version and the closest PyTorch library call,
-and checks that each path launched its kernels: every count is set to 0
-just before a path's prefill and read just after.
+NSA scheduler, then trained a few steps (AdamW, remat, gradients through the
+kernels' autograd Functions). The script builds every kernel from the
+sources in the checkout, holds each against its plain PyTorch version on the
+card, times it (and its backward, the plain version's VJP) beside its bound,
+its plain version and the closest PyTorch library call, and checks that each
+path launched its kernels: every count is set to 0 just before a path's
+prefill or training step and read just after.
 
 Phases (any failure exits non-zero):
   1. card name and power limit; build the kernels (one nvcc each, together)
@@ -27,7 +29,17 @@ Phases (any failure exits non-zero):
      prefill-vs-decode consistency (bound 2e-3), serving 8 requests
   7-9. mamba2-130m: the same three
   10-12. recurrentgemma-9b: the same three (the fp32 check at depth 5)
-  13. one JSON line of kernels, the card line, then the device line last
+  13. loss gradients on the card (through the kernels) against the CPU, for
+      reduced qwen2.5-3b, mamba2-130m and recurrentgemma-9b in fp32, remat
+      off and on: every leaf, within 1e-4
+  14. full-width qwen2.5-3b training: 3 steps at (2, 512 + 1), bf16 params,
+      fp32 moments, remat (launches per step, every leaf moved, peak
+      memory), then one step under the profiler
+  15. full-width mamba2-130m training at (2, 2048 + 1), then an exact
+      checkpoint round trip on the card
+  16. full-width recurrentgemma-9b cut to 5 layers (one super-block and both
+      tails) training at (1, 4096 + 1), past the 2048 window
+  17. one JSON line of kernels, the card line, then the device line last
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -41,6 +53,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,14 +62,19 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cluster import make_paper_cluster  # noqa: E402
+from repro_torch.data import DataConfig, batches_for_model  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.optim import adamw, cosine_with_warmup  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.train import make_train_step  # noqa: E402
+from repro_torch.utils.params import tree_leaves, tree_map  # noqa: E402
 
 SEED = 0
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense tensor-core rate, bf16
@@ -72,6 +90,10 @@ RGLRU_MAIN = dict(B=1, L=4096, W=4096)           # recurrentgemma-9b RG-LRU pref
 #: the kernels' wrappers, whose ``launches`` count their kernel launches
 KERNELS = {"flash_attention": fa.flash_attention, "ssd_scan": ss.ssd_scan,
            "rglru_scan": rg.rglru_scan}
+#: the profiler ranges of the kernels' backward passes (their plain VJPs)
+BACKWARD_RANGES = {"flash_attention": "flash_attention backward (plain VJP)",
+                   "ssd_scan": "ssd_scan backward (plain VJP)",
+                   "rglru_scan": "rglru_scan backward (plain VJP)"}
 
 
 def log(msg: str) -> None:
@@ -355,6 +377,14 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def backward_timing(name: str, shape: str, fn, iters: int, device_line: str) -> float:
+    """CUDA-event time per call of a kernel's backward: its plain version's
+    VJP, recomputed from the inputs."""
+    ms = cuda_ms(fn, iters=iters, warmup=1)
+    log(f"  [{device_line}] {name} backward (plain VJP) at {shape}: {ms:.4f} ms per call")
+    return ms
+
+
 def flash_timing(device_line: str):
     """The main (qwen2.5-3b) shape and the hybrid (recurrentgemma-9b) shape."""
     m = MAIN
@@ -404,6 +434,12 @@ def flash_timing(device_line: str):
         f"{pf_bytes / 1e6:.2f} MB); kernel at {pf_flops / pf_ms / 1e9:.1f} TFLOP/s = "
         f"{100 * pf_bound / pf_ms:.2f}% of the bf16 roofline (device: "
         f"{pf_flops / pf_dev / 1e9:.1f} TFLOP/s); kernel / SDPA = {pf_ms / pf_lib:.3f}")
+    scale = 1.0 / math.sqrt(pf["d"])
+    grad = torch.randn_like(fa.flash_attention(q, k, v, causal=True))   # the output's layout
+    pf_bwd = backward_timing(
+        "flash_attention", "the qwen training call (2,16,2,512,128) bf16 on (B,S,H,D) views",
+        lambda: fa.flash_attention_vjp(q, k, v, grad, causal=True, window=0, scale=scale),
+        10, device_line)
 
     h = HYBRID
     q, k, v = qkv(SEED + 1, h["b"], h["hq"], h["hkv"], h["s"], h["d"], h["d"], torch.bfloat16)
@@ -429,12 +465,19 @@ def flash_timing(device_line: str):
         f"kernel at {hy_flops / hy_ms / 1e9:.1f} TFLOP/s = "
         f"{100 * hy_bound / hy_ms:.2f}% of the bf16 roofline, kernel / SDPA = "
         f"{hy_ms / hy_lib:.3f}")
+    scale = 1.0 / math.sqrt(h["d"])
+    grad = torch.randn_like(fa.flash_attention(q, k, v, causal=True, window=w))
+    hy_bwd = backward_timing(
+        "flash_attention", "the recurrentgemma training call (1,16,1,4096,256) window 2048",
+        lambda: fa.flash_attention_vjp(q, k, v, grad, causal=True, window=w, scale=scale),
+        3, device_line)
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, device_ms=dev_ms, cuda_core_ms=core_ms,
+                backward_ms=pf_bwd, backward_at="qwen training call (2,16,2,512,128) bf16",
                 prefill=dict(ms=pf_ms, plain_ms=pf_plain, library_ms=pf_lib, bound_ms=pf_bound,
-                             bound_by=pf_by, device_ms=pf_dev),
+                             bound_by=pf_by, device_ms=pf_dev, backward_ms=pf_bwd),
                 hybrid=dict(ms=hy_ms, plain_ms=hy_plain, library_ms=hy_lib, bound_ms=hy_bound,
-                            bound_by=hy_by, device_ms=hy_dev))
+                            bound_by=hy_by, device_ms=hy_dev, backward_ms=hy_bwd))
 
 
 def ssd_timing(device_line: str):
@@ -461,8 +504,12 @@ def ssd_timing(device_line: str):
         f"{100 * bound_ms / kernel_ms:.2f}% of the roofline; variant "
         f"{ss.route(*args, Q)}, {B * H * nc} blocks per chunk pass on 132 SMs")
     profile_call(lambda: ss.ssd_scan(*args, chunk=Q), "one ssd_scan call", device_line)
+    grad = torch.randn_like(args[0])
+    bwd = backward_timing("ssd_scan", "the mamba2 training call (2,2048,24,64,G1,N128,Q256)",
+                          lambda: ss.ssd_scan_vjp(*args, grad, None, chunk=Q), 3, device_line)
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by, device_ms=dev_ms)
+                bound_by=bound_by, device_ms=dev_ms, backward_ms=bwd,
+                backward_at="mamba2 training call (2,2048,24,64,G1,N128,Q256)")
 
 
 def rglru_timing(device_line: str):
@@ -490,7 +537,12 @@ def rglru_timing(device_line: str):
             f"reaches {100 * add_ms / kernel_ms:.2f}% of its rate")
         out[key] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                         bound_by=bound_by, device_ms=dev_ms, same_bytes_add_ms=add_ms)
-    return dict(out["fp32"], bf16=out["bf16"])
+    a, b = rglru_inputs(SEED, **RGLRU_MAIN, dtype=torch.float32)
+    grad = torch.randn_like(b)
+    bwd = backward_timing("rglru_scan", "the recurrentgemma training call (1,4096,4096) fp32",
+                          lambda: rg.rglru_scan_vjp(a, b, grad), 5, device_line)
+    return dict(out["fp32"], bf16=out["bf16"], backward_ms=bwd,
+                backward_at="recurrentgemma training call (1,4096,4096) fp32")
 
 
 def phase_prefill(model, params, batch: int, seq: int, device_line: str) -> dict:
@@ -576,8 +628,10 @@ def reference_cache_shapes(model, batch: int, seq: int) -> dict:
     return out
 
 
-def profile_call(fn, label: str, device_line: str) -> None:
-    """Device time by kernel over one call of ``fn`` (torch.profiler)."""
+def profile_call(fn, label: str, device_line: str) -> dict:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and the
+    device time under each kernel's backward range; returns the wall, busy
+    and backward times in ms (empty where no device time was recorded)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -585,12 +639,16 @@ def profile_call(fn, label: str, device_line: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    ranges = set(BACKWARD_RANGES.values())
+    # the backward ranges also appear on the device's timeline as annotations,
+    # which are spans, not kernels: they stay out of the busy time
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in ranges]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
         log(f"  profile of {label}: no device time recorded; breakdown not measured")
-        return
+        return {}
     log(f"  profile [{device_line}] {label} under the profiler: wall {wall_us / 1e3:.3f} ms, "
         f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% of wall), "
         f"{sum(e.count for e in kernels)} kernel launches")
@@ -604,6 +662,20 @@ def profile_call(fn, label: str, device_line: str) -> None:
     for e in ranked[:8] + ours:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {100 * e.self_device_time_total / busy_us:5.1f}%"
             f"  x{e.count:<4d} {e.key[:90]}")
+    out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+               launches=sum(e.count for e in kernels), backward_ms={})
+    for name, rng in BACKWARD_RANGES.items():
+        host = [e for e in events if e.key == rng and e.device_type != torch.autograd.DeviceType.CUDA]
+        if not host:
+            continue
+        dev_us = sum(e.device_time_total for e in host)
+        calls = sum(e.count for e in host)
+        log(f"    {name} backward (plain VJP): {calls} calls, device "
+            f"{dev_us / 1e3:.3f} ms ({100 * dev_us / busy_us:.1f}% of busy), host "
+            f"{sum(e.cpu_time_total for e in host) / 1e3:.3f} ms"
+            + ("" if dev_us > 0 else "; device time under the range not recorded"))
+        out["backward_ms"][name] = dict(calls=calls, device_ms=dev_us / 1e3)
+    return out
 
 
 def phase_consistency(cfg) -> float:
@@ -683,6 +755,122 @@ def drive(arch: str, first: int, batch: int, seq: int, device_line: str,
     return out
 
 
+def loss_grads(model, params, tokens, remat: bool):
+    """(loss, {path: gradient}) of ``model.loss_fn``; a leaf that the loss
+    does not reach raises."""
+    inputs = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = model.loss_fn(inputs, {"tokens": tokens}, remat=remat)
+    grads = torch.autograd.grad(loss, tree_leaves(inputs))
+    return loss.detach(), dict(zip(leaves(params), grads))
+
+
+def phase_grads() -> dict:
+    """Queue C item 1: loss gradients on the card, through the kernels'
+    autograd Functions, against the CPU's plain path on the same fp32
+    parameters and tokens; every leaf finite and within 1e-4."""
+    out = {}
+    for arch in ("qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b"):
+        model = Model(dataclasses.replace(get_config(arch).reduced(), dtype="float32"))
+        params, _ = model.init(torch.Generator().manual_seed(SEED), device="cpu")
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (2, 129))
+                                  .astype(np.int32))
+        worst = 0.0
+        for remat in (False, True):
+            want_loss, want = loss_grads(model, params, tokens, remat)
+            reset_counts()
+            got_loss, got = loss_grads(model, tree_map(lambda p: p.cuda(), params),
+                                       tokens.cuda(), remat)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            per_forward = expected_launches(model)
+            assert launches == {k: n * (2 if remat else 1) for k, n in per_forward.items()}, \
+                (arch, remat, launches)
+            assert abs(float(got_loss) - float(want_loss)) < 1e-4, (arch, remat)
+            assert got.keys() == want.keys()
+            for path, g in got.items():
+                assert bool(torch.isfinite(g).all()), (arch, remat, path)
+                g = g.cpu()
+                worst = max(worst, float((g - want[path]).abs().max()))
+                assert torch.allclose(g, want[path], rtol=1e-4, atol=1e-4), (arch, remat, path)
+            log(f"  {arch} reduced fp32 (2, 128 + 1), remat {remat}: {len(got)} leaves, loss "
+                f"{float(got_loss):.6f} (CPU {float(want_loss):.6f}), launches in the CUDA "
+                f"forward and recompute {launches}")
+        log(f"  {arch}: largest |CUDA - CPU| over every gradient leaf {worst:.3e} "
+            f"(tolerance 1e-4 rtol and atol)")
+        out[arch] = worst
+    return out
+
+
+def phase_train(cfg, batch: int, seq: int, steps: int, device_line: str, *,
+                check_moved: bool = False, check_checkpoint: bool = False) -> dict:
+    """``steps`` AdamW steps with remat on Markov-corpus batches of (batch,
+    seq + 1) tokens, each from zeroed counts, then one more under the
+    profiler. Every kernel launches twice per step (forward and recompute)."""
+    model = Model(cfg)
+    params, _ = model.init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    # a peak lr that moves every bf16 leaf in one step, the unit norm scales
+    # included (half a bf16 step at 1.0 is 2^-9)
+    opt = adamw(cosine_with_warmup(5e-3, 1, steps + 1))
+    state = opt.init(params)
+    step_fn = make_train_step(model, opt, remat=True)
+    data = batches_for_model(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                             global_batch=batch, seed=SEED))
+    expected = {k: 2 * n for k, n in expected_launches(model).items()}
+    log(f"  {model.param_count(params) / 1e9:.3f} B parameters in {cfg.dtype}, fp32 moments: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the first step")
+    before = ({p: t.to("cpu", copy=True) for p, t in leaves(params).items()}
+              if check_moved else None)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(1, steps + 1):
+        tokens = torch.from_numpy(next(data)["tokens"]).cuda()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, {"tokens": tokens})
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  [{device_line}] step {i}: wall {wall:.4f} s, {tokens[:, :-1].numel() / wall:.1f} "
+            f"tokens/s, loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, lr {m['lr']:.2e}, "
+            f"launches {launches} (expected {expected}), max allocated {peak / 1e9:.2f} GB")
+        assert launches == expected, (launches, expected)
+        assert math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]), m
+        assert m["grad_norm"] > 0, m
+        rows.append(dict(m, wall_s=wall, tokens_per_s=tokens[:, :-1].numel() / wall,
+                         launches=launches, max_allocated_gb=peak / 1e9))
+        if before is not None:
+            still = [p for p, t in leaves(params).items() if torch.equal(before[p], t.cpu())]
+            assert not still, f"leaves unchanged by step 1: {still}"
+            log(f"  every one of the {len(before)} parameter leaves changed in step 1")
+            before = None
+    tokens = torch.from_numpy(next(data)["tokens"]).cuda()
+    prof = profile_call(lambda: step_fn(params, state, {"tokens": tokens}),
+                        f"one more training step ({batch}, {seq} + 1)", device_line)
+    if check_checkpoint:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            save_checkpoint(tmp, steps, params, state)
+            saved = time.perf_counter() - t0
+            like = (tree_map(torch.empty_like, params),
+                    type(state)(torch.empty_like(state.step),
+                                tree_map(torch.empty_like, state.mu),
+                                tree_map(torch.empty_like, state.nu)))
+            p2, s2, step = restore_checkpoint(tmp, like)
+        assert step == steps
+        pairs = list(zip(tree_leaves(params) + tree_leaves(state.mu) + tree_leaves(state.nu),
+                         tree_leaves(p2) + tree_leaves(s2.mu) + tree_leaves(s2.nu)))
+        assert torch.equal(state.step, s2.step)
+        for a, b in pairs:
+            assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+        log(f"  checkpoint of step {steps} saved in {saved:.2f} s and restored onto the card: "
+            f"{len(pairs) + 1} arrays bit-equal (params, moments, step)")
+    return dict(steps=rows, profile=prof, launches=rows[0]["launches"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -712,7 +900,25 @@ def main() -> int:
                                                      device_line, consistency_layers=5),
     }
 
-    log("phase 13: results")
+    log("phase 13: loss gradients on the card vs the CPU (Queue C item 1)")
+    grads = phase_grads()
+
+    log("phase 14: full-width qwen2.5-3b training, (2, 512 + 1), remat")
+    train_runs = {"qwen2.5-3b training step (2, 512)": phase_train(
+        get_config("qwen2.5-3b"), 2, 512, 3, device_line, check_moved=True)}
+    torch.cuda.empty_cache()
+    log("phase 15: full-width mamba2-130m training, (2, 2048 + 1), remat, checkpoint")
+    train_runs["mamba2-130m training step (2, 2048)"] = phase_train(
+        get_config("mamba2-130m"), 2, 2048, 3, device_line, check_checkpoint=True)
+    torch.cuda.empty_cache()
+    log("phase 16: full-width recurrentgemma-9b cut to 5 layers, training (1, 4096 + 1)")
+    train_runs["recurrentgemma-9b (5 layers) training step (1, 4096)"] = phase_train(
+        dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=5), 1, 4096, 2,
+        device_line)
+    torch.cuda.empty_cache()
+    paths.update(train_runs)
+
+    log("phase 17: results")
     kernels = []
     for name, source, replaces in (
             ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:30"),
@@ -725,6 +931,7 @@ def main() -> int:
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
             replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=cases[name][0]["max_abs_err"], **t, cases=cases[name]))
+    print(json.dumps({"training": train_runs, "grad_max_abs_err": grads}))
     print(json.dumps({"kernels": kernels}))
     print(device_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,9 +13,12 @@ as the transposed (B, S, H, D) projections of the model; the output is a
 (B, H, S, Dv) view of a (B, S, H, Dv) allocation, so that the model's
 ``transpose(1, 2).reshape`` copies nothing.
 
-On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor
-it computes the same function with the plain version,
-``ref.attention_ref``.
+On a CUDA tensor the wrapper launches the kernel or raises, inside a
+``torch.autograd.Function`` whose backward is the VJP of the plain version
+(``ref.attention_chunked``), recomputed from the saved inputs: the JAX
+package has no backward kernel, and it trains by differentiating its plain
+path. On a CPU tensor the wrapper computes the same function with the plain
+version, ``ref.attention_ref``, and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -103,27 +106,10 @@ _VARIANTS = {"cuda_core": 0, "wgmma": 1}
 _STRIDES = ctypes.c_longlong * 12
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    window: int = 0,
-    scale: float | None = None,
-) -> torch.Tensor:
-    """q: (B, Hq, S, D); k: (B, Hkv, S, D); v: (B, Hkv, S, Dv) -> (B, Hq, S, Dv).
-
-    On the card the result is a (B, Hq, S, Dv) view of a (B, S, Hq, Dv)
-    tensor."""
-    if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    _check(q, k, v)
+def _launch(q, k, v, causal: bool, window: int, scale: float) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA inputs; counts it."""
     b, hq, s, d = q.shape
     hkv, dv = k.shape[1], v.shape[3]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     strides = (_strides(q), _strides(k), _strides(v))
     variant = _route(q, k, v, strides)
     out_strides = (s * hq * dv, dv, hq * dv)
@@ -143,7 +129,64 @@ def flash_attention(
     return out
 
 
-#: kernel launches since the last reset (CPU calls do not count)
+def flash_attention_vjp(q, k, v, grad_out, *, causal: bool, window: int, scale: float,
+                        needs=(True, True, True)):
+    """(dq, dk, dv) of the plain version at (q, k, v) against ``grad_out`` (any
+    layout), ``None`` where ``needs`` is false: autograd of
+    ``ref.attention_chunked`` recomputed from the inputs."""
+    with torch.profiler.record_function("flash_attention backward (plain VJP)"), \
+            torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip((q, k, v), needs)]
+        out = ref.attention_chunked(*inputs, causal=causal, window=window, scale=scale)
+        grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad],
+                                         grad_out))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the plain version's VJP backward. Saves q, k, v
+    only where a gradient is asked for (nothing under ``torch.no_grad``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.mask = (causal, window, scale)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, window, scale = ctx.mask
+        grads = flash_attention_vjp(*ctx.saved_tensors, grad_out, causal=causal,
+                                    window=window, scale=scale,
+                                    needs=ctx.needs_input_grad[:3])
+        return (*grads, None, None, None)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """q: (B, Hq, S, D); k: (B, Hkv, S, D); v: (B, Hkv, S, Dv) -> (B, Hq, S, Dv).
+
+    On the card the result is a (B, Hq, S, Dv) view of a (B, S, Hq, Dv)
+    tensor, and differentiable through the plain version's VJP."""
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    _check(q, k, v)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    return _FlashAttention.apply(q, k, v, causal, window, scale)
+
+
+#: kernel launches since the last reset (CPU calls, and backward passes, which
+#: run the plain version, do not count)
 flash_attention.launches = 0
 #: the same launches by variant
 flash_attention.by_variant = {"cuda_core": 0, "wgmma": 0}

@@ -40,37 +40,6 @@ def _check_kernel_impl(impl: str, op: str, t: torch.Tensor) -> None:
 # attention
 # ---------------------------------------------------------------------------
 
-def _attention_chunked(q, k, v, *, causal, window, scale, q_chunk=2048):
-    """Memory-efficient self-attention: a loop over query chunks.
-
-    Keeps the peak score tensor at (B, H, q_chunk, S) instead of (B, H, S, S)
-    — required for the 32k prefill shapes.
-    """
-    hq, sq, d = q.shape[1], q.shape[2], q.shape[3]
-    if sq <= q_chunk:
-        return ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale)
-    if sq % q_chunk:
-        raise ValueError(f"sequence {sq} is not a multiple of q_chunk {q_chunk}")
-    kf = ref.repeat_kv(k, hq).float()
-    vf = ref.repeat_kv(v, hq).float()
-    scale_ = scale if scale is not None else 1.0 / math.sqrt(d)
-    k_pos = torch.arange(sq, device=q.device)
-    neg = torch.tensor(ref.NEG_INF, dtype=torch.float32, device=q.device)
-    chunks = []
-    for q0 in range(0, sq, q_chunk):
-        qc = q[:, :, q0:q0 + q_chunk]
-        s = torch.einsum("bhqd,bhkd->bhqk", qc.float(), kf) * scale_
-        q_pos = q0 + torch.arange(q_chunk, device=q.device)[:, None]
-        mask = torch.ones((q_chunk, sq), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= k_pos[None, :] <= q_pos
-        if window > 0:
-            mask &= k_pos[None, :] > q_pos - window
-        p = torch.softmax(torch.where(mask, s, neg), dim=-1)
-        chunks.append(torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype))
-    return torch.cat(chunks, dim=2)
-
-
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -83,7 +52,7 @@ def attention(
 ) -> torch.Tensor:
     """Self-attention over aligned q/k/v (prefill & training)."""
     if impl == "torch":
-        return _attention_chunked(q, k, v, causal=causal, window=window, scale=scale)
+        return ref.attention_chunked(q, k, v, causal=causal, window=window, scale=scale)
     _check_kernel_impl(impl, "attention", q)
     # the kernel reads strided (B, H, S, D) views as they are: no copies
     return flash_attention(q, k, v, causal=causal, window=window, scale=scale)

@@ -59,6 +59,37 @@ def attention_ref(
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def attention_chunked(q, k, v, *, causal, window, scale, q_chunk=2048):
+    """Memory-efficient self-attention: a loop over query chunks.
+
+    Keeps the peak score tensor at (B, H, q_chunk, S) instead of (B, H, S, S)
+    — required for the 32k prefill shapes.
+    """
+    hq, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    if sq <= q_chunk:
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    if sq % q_chunk:
+        raise ValueError(f"sequence {sq} is not a multiple of q_chunk {q_chunk}")
+    kf = repeat_kv(k, hq).float()
+    vf = repeat_kv(v, hq).float()
+    scale_ = scale if scale is not None else 1.0 / math.sqrt(d)
+    k_pos = torch.arange(sq, device=q.device)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
+    chunks = []
+    for q0 in range(0, sq, q_chunk):
+        qc = q[:, :, q0:q0 + q_chunk]
+        s = torch.einsum("bhqd,bhkd->bhqk", qc.float(), kf) * scale_
+        q_pos = q0 + torch.arange(q_chunk, device=q.device)[:, None]
+        mask = torch.ones((q_chunk, sq), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos
+        if window > 0:
+            mask &= k_pos[None, :] > q_pos - window
+        p = torch.softmax(torch.where(mask, s, neg), dim=-1)
+        chunks.append(torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype))
+    return torch.cat(chunks, dim=2)
+
+
 def _heads_from_groups(m: torch.Tensor, num_heads: int) -> torch.Tensor:
     """(B, L, G, N) -> (B, L, H, N) in fp32: head h reads group h * G // H."""
     return torch.repeat_interleave(m.float(), num_heads // m.shape[2], dim=2)
@@ -133,8 +164,11 @@ def ssd_chunked_ref(
         xc, dtc, bc, cc, lc = xf[:, c], dtf[:, c], bf[:, c], cf[:, c], lcum[:, c]
         # intra-chunk
         cb = torch.einsum("bqhn,bshn->bhqs", cc, bc)
-        decay = torch.exp(lc[:, :, None, :] - lc[:, None, :, :]).permute(0, 3, 1, 2)
-        gate = torch.where(mask, cb * decay, 0.0)
+        # the exponent is masked before exp: above the diagonal it grows with
+        # the chunk's decay and overflows fp32 (a full-width chunk reaches
+        # e^180), where exp's gradient would be inf * 0 = NaN
+        seg = (lc[:, :, None, :] - lc[:, None, :, :]).permute(0, 3, 1, 2)
+        gate = cb * torch.exp(torch.where(mask, seg, -torch.inf))
         y = torch.einsum("bhqs,bsh,bshp->bqhp", gate, dtc, xc)
         # carried state
         y = y + torch.einsum("bqh,bqhn,bhpn->bqhp", torch.exp(lc), cc, h)

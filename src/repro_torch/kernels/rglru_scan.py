@@ -4,8 +4,11 @@ The kernel (``csrc/rglru_scan.cu``, CUDA C++ for sm_90a) replaces the Pallas
 TPU kernel of ``repro.kernels.rglru_scan``. It is built with ``nvcc`` at
 first use and called through ``ctypes`` (see ``kernels.build``).
 
-On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor
-it computes the same function with the plain version, ``ref.rglru_ref``.
+On a CUDA tensor the wrapper launches the kernel or raises, inside a
+``torch.autograd.Function`` whose backward is the VJP of the plain version
+(``ref.rglru_ref``), recomputed from the saved inputs: the JAX package has no
+backward kernel. On a CPU tensor the wrapper computes the same function with
+the plain version, and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -45,16 +48,8 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"rglru_scan: shape {tuple(a.shape)} out of range")
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t * h_{t-1} + b_t, h_0 = 0, for any L.
-
-    a, b: (B, L, W) -> h: (B, L, W) (fp32 recurrence, output in b's dtype).
-    """
-    if a.device.type == "cpu":
-        return ref.rglru_ref(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan: no kernel for device {a.device}")
-    _check(a, b)
+def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA inputs; counts it."""
     B, L, W = a.shape
     out = torch.empty_like(b)
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -69,5 +64,46 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-#: kernel launches since the last reset (CPU calls do not count)
+def rglru_scan_vjp(a, b, grad_out, *, needs=(True, True)):
+    """(da, db) of the plain version at (a, b) against ``grad_out``, ``None``
+    where ``needs`` is false: autograd of ``ref.rglru_ref`` recomputed from
+    the inputs."""
+    with torch.profiler.record_function("rglru_scan backward (plain VJP)"), torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip((a, b), needs)]
+        out = ref.rglru_ref(*inputs)
+        grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad],
+                                         grad_out))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """The kernel forward; the plain version's VJP backward. Saves a and b
+    only where a gradient is asked for (nothing under ``torch.no_grad``)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(a, b)
+        return _launch(a, b)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return rglru_scan_vjp(*ctx.saved_tensors, grad_out, needs=ctx.needs_input_grad)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t, h_0 = 0, for any L.
+
+    a, b: (B, L, W) -> h: (B, L, W) (fp32 recurrence, output in b's dtype).
+    """
+    if a.device.type == "cpu":
+        return ref.rglru_ref(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan: no kernel for device {a.device}")
+    _check(a, b)
+    return _RGLRUScan.apply(a, b)
+
+
+#: kernel launches since the last reset (CPU calls, and backward passes, which
+#: run the plain version, do not count)
 rglru_scan.launches = 0

@@ -11,9 +11,11 @@ chunk-parallel passes, so one wrapper call launches three CUDA kernels) or
 tensor-core passes keep the chunk states in fp32 scratch that the wrapper
 allocates.
 
-On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor
-it computes the same function with the plain version,
-``ref.ssd_chunked_ref``.
+On a CUDA tensor the wrapper launches the kernel or raises, inside a
+``torch.autograd.Function`` whose backward is the VJP of the plain version
+(``ref.ssd_chunked_ref``), recomputed from the saved inputs: the JAX package
+has no backward kernel. On a CPU tensor the wrapper computes the same
+function with the plain version, and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -97,29 +99,8 @@ def route(x, dt, a, b_mat, c_mat, chunk: int) -> str:
     return "tensor_core"
 
 
-def ssd_scan(
-    x: torch.Tensor,
-    dt: torch.Tensor,
-    a: torch.Tensor,
-    b_mat: torch.Tensor,
-    c_mat: torch.Tensor,
-    *,
-    chunk: int = 256,
-):
-    """Chunked SSD.
-
-    x: (B, L, H, P); dt: (B, L, H); a: (H,); b_mat/c_mat: (B, L, G, N).
-    Returns (y (B, L, H, P) in x's dtype, h_final (B, H, P, N) fp32).
-    Raises ``ValueError`` unless ``chunk`` divides L, as the reference does.
-    """
-    L = x.shape[1]
-    if chunk < 1 or L % chunk:
-        raise ValueError(f"L={L} not divisible by chunk={chunk}")
-    if x.device.type == "cpu":
-        return ref.ssd_chunked_ref(x, dt, a, b_mat, c_mat, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
-    _check(x, dt, a, b_mat, c_mat)
+def _launch(x, dt, a, b_mat, c_mat, chunk: int):
+    """One call of the kernel on checked CUDA inputs; counts it."""
     B, L, H, P = x.shape
     G, N = b_mat.shape[2], b_mat.shape[3]
     y = torch.empty_like(x)
@@ -148,8 +129,72 @@ def ssd_scan(
     return y, h
 
 
-#: wrapper calls that launched the kernel since the last reset (CPU calls do
-#: not count); the tensor-core variant's three passes count once
+def ssd_scan_vjp(x, dt, a, b_mat, c_mat, grad_y, grad_h, *, chunk: int,
+                 needs=(True,) * 5):
+    """Gradients of the plain version's (y, h_final) at the inputs against
+    ``grad_y`` and ``grad_h`` (either may be ``None``), ``None`` where
+    ``needs`` is false: autograd of ``ref.ssd_chunked_ref`` recomputed from
+    the inputs."""
+    with torch.profiler.record_function("ssd_scan backward (plain VJP)"), torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip((x, dt, a, b_mat, c_mat), needs)]
+        outs = ref.ssd_chunked_ref(*inputs, chunk)
+        pairs = [(o, g) for o, g in zip(outs, (grad_y, grad_h)) if g is not None]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs],
+                                         [t for t in inputs if t.requires_grad],
+                                         [g for _, g in pairs]))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _SSDScan(torch.autograd.Function):
+    """The kernel forward; the plain version's VJP backward. Saves the inputs
+    only where a gradient is asked for (nothing under ``torch.no_grad``); the
+    final state's gradient may be absent (a train forward drops the state)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        if any(ctx.needs_input_grad[:5]):
+            ctx.save_for_backward(x, dt, a, b_mat, c_mat)
+        return _launch(x, dt, a, b_mat, c_mat, chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        grads = ssd_scan_vjp(*ctx.saved_tensors, grad_y, grad_h, chunk=ctx.chunk,
+                             needs=ctx.needs_input_grad[:5])
+        return (*grads, None)
+
+
+def ssd_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b_mat: torch.Tensor,
+    c_mat: torch.Tensor,
+    *,
+    chunk: int = 256,
+):
+    """Chunked SSD.
+
+    x: (B, L, H, P); dt: (B, L, H); a: (H,); b_mat/c_mat: (B, L, G, N).
+    Returns (y (B, L, H, P) in x's dtype, h_final (B, H, P, N) fp32).
+    Raises ``ValueError`` unless ``chunk`` divides L, as the reference does.
+    """
+    L = x.shape[1]
+    if chunk < 1 or L % chunk:
+        raise ValueError(f"L={L} not divisible by chunk={chunk}")
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(x, dt, a, b_mat, c_mat, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    _check(x, dt, a, b_mat, c_mat)
+    return _SSDScan.apply(x, dt, a, b_mat, c_mat, chunk)
+
+
+#: wrapper calls that launched the kernel since the last reset (CPU calls, and
+#: backward passes, which run the plain version, do not count); the
+#: tensor-core variant's three passes count once
 ssd_scan.launches = 0
 #: the same launches by variant
 ssd_scan.by_variant = {"cuda_core": 0, "tensor_core": 0}

@@ -4,8 +4,8 @@ families.
 One ``Model`` object per ``ModelConfig`` exposes, as the reference does:
 
   init(generator, device)            -> (params, specs)
-  forward(params, batch, mode)       -> (logits, aux_loss, cache_or_None)
-  loss_fn(params, batch)             -> (loss, nll)
+  forward(params, batch, mode, remat) -> (logits, aux_loss, cache_or_None)
+  loss_fn(params, batch, remat)      -> (loss, nll)
   init_cache(batch, cache_len, device) -> (cache, cache_specs)
   decode_step(params, token, cache)  -> (logits, cache)
 
@@ -13,8 +13,9 @@ Parameters keep the reference's tree, with the layers stacked on a leading
 axis under ``"blocks"`` (the hybrid family: repeating super-blocks under
 ``"super"`` and the leftover layers as ``"tail{t}"``); the reference's
 ``lax.scan`` over layers is a Python loop over layer slices, and the port
-runs eagerly. Entry points run on the card unless the caller names another
-device.
+runs eagerly. ``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``), the reference's ``remat_policy = "full"``.
+Entry points run on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -22,12 +23,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
-from repro_torch.utils.params import ParamBuilder, count_params, layer_slice, stack_layers
+from repro_torch.utils.params import ParamBuilder, count_params, layer_slices, stack_layers
 
 #: the ROADMAP item that ports each family still missing here
 _FAMILY_ITEMS = {
@@ -191,8 +193,14 @@ class Model:
 
     # -- training / prefill forward -----------------------------------------
 
+    def _ssm_block(self, p, x):
+        cfg = self.cfg
+        h = L.apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+        out, st = SSM.apply_ssm(p["mixer"], h, cfg)
+        return x + out, st
+
     def forward(self, params, batch: Dict[str, torch.Tensor], *, mode: str = "train",
-                window: int = 0):
+                window: int = 0, remat: bool = False):
         """Full-sequence forward.
 
         batch: {"tokens": (B, S) int}
@@ -202,6 +210,8 @@ class Model:
         (L, B, Hkv, S, hd) K/V, the SSM family's stacked {"conv", "ssm"}
         states, the hybrid family's per-super-block states under "super" and
         each tail's under "tail{t}").
+        remat: recompute each block in the backward instead of keeping its
+        activations (every kernel then launches twice per training step).
         """
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -211,38 +221,40 @@ class Model:
         aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
         collect = mode == "prefill"
         caches: Dict[str, Any] = {}
+
+        def block(fn, *args, **kwargs):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+            return fn(*args, **kwargs)
+
         if cfg.family == "dense":
             kvs = []
-            for i in range(cfg.num_layers):
-                x, kv = self._dense_block(layer_slice(params["blocks"], i), x, positions,
-                                          window=window, collect_kv=collect)
+            for p in layer_slices(params["blocks"]):
+                x, kv = block(self._dense_block, p, x, positions, window=window,
+                              collect_kv=collect)
                 kvs.append(kv)
             if collect:
                 caches["kv"] = _stack_states(kvs)
         elif cfg.family == "ssm":
             states = []
-            for i in range(cfg.num_layers):
-                p = layer_slice(params["blocks"], i)
-                h = L.apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
-                out, st = SSM.apply_ssm(p["mixer"], h, cfg)
-                x = x + out
+            for p in layer_slices(params["blocks"]):
+                x, st = block(self._ssm_block, p, x)
                 states.append(st)
             if collect:
                 caches["ssm_states"] = _stack_states(states)
         else:
             sup_states = []
-            for i in range(self._n_super):
-                p = layer_slice(params["super"], i)
+            for p in layer_slices(params["super"]):
                 st_out = {}
                 for j, kind in enumerate(self._pattern):
-                    x, st_out[f"b{j}"] = self._hybrid_block(p[f"b{j}_{kind}"], kind, x,
-                                                            positions, collect=collect)
+                    x, st_out[f"b{j}"] = block(self._hybrid_block, p[f"b{j}_{kind}"], kind, x,
+                                               positions, collect=collect)
                 sup_states.append(st_out)
             if collect:
                 caches["super"] = _stack_states(sup_states)
             for t in range(self._n_tail):
-                x, st = self._hybrid_block(params[f"tail{t}"], self._tail_kind(t), x,
-                                           positions, collect=collect)
+                x, st = block(self._hybrid_block, params[f"tail{t}"], self._tail_kind(t), x,
+                              positions, collect=collect)
                 if collect:
                     caches[f"tail{t}"] = st
 
@@ -255,13 +267,13 @@ class Model:
 
     # -- loss ---------------------------------------------------------------
 
-    def loss_fn(self, params, batch):
+    def loss_fn(self, params, batch, *, remat: bool = True):
         """Next-token cross entropy over ``batch["tokens"]`` (B, S + 1).
         Returns (loss, nll); the dense family has no auxiliary loss."""
         cfg = self.cfg
         tokens = batch["tokens"]
         logits, aux, _ = self.forward(params, {**batch, "tokens": tokens[:, :-1]},
-                                      mode="train")
+                                      mode="train", remat=remat)
         logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, tokens[:, 1:, None].long())[..., 0]
@@ -344,8 +356,7 @@ class Model:
         q8 = cfg.kv_cache_dtype == "int8"
         kv_names = ("k", "v", "k_scale", "v_scale") if q8 else ("k", "v")
         outs = [[] for _ in kv_names]
-        for i in range(cfg.num_layers):
-            p = layer_slice(params["blocks"], i)
+        for i, p in enumerate(layer_slices(params["blocks"])):
             c = [cache[n][i] for n in kv_names]
             h = L.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
             if q8:
@@ -369,8 +380,7 @@ class Model:
     def _ssm_decode(self, params, x, cache, new_cache):
         cfg = self.cfg
         convs, ssms = [], []
-        for i in range(cfg.num_layers):
-            p = layer_slice(params["blocks"], i)
+        for i, p in enumerate(layer_slices(params["blocks"])):
             h = L.apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
             out, st = SSM.apply_ssm_decode(p["mixer"], h, cfg,
                                            {"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
@@ -399,8 +409,7 @@ class Model:
     def _hybrid_decode(self, params, x, cache, new_cache, pos):
         suffixes = {"rec": ("conv", "h"), "attn": ("k", "v")}
         outs: Dict[str, list] = {}
-        for i in range(self._n_super):
-            p = layer_slice(params["super"], i)
+        for i, p in enumerate(layer_slices(params["super"])):
             for j, kind in enumerate(self._pattern):
                 c = {sfx: cache[f"s{j}_{sfx}"][i] for sfx in suffixes[kind]}
                 x, nc = self._hybrid_decode_block(p[f"b{j}_{kind}"], kind, x, c, pos)

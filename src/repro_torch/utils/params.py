@@ -110,9 +110,13 @@ def _prefix_specs(specs):
     return ("layers",) + tuple(specs)
 
 
-def layer_slice(tree, i: int):
-    """The ``i``-th layer of a layer-stacked tree (views, no copies)."""
-    return tree_map(lambda a: a[i], tree)
+def layer_slices(tree) -> list:
+    """Every layer of a layer-stacked tree, as views. One ``torch.unbind`` per
+    leaf: its backward stacks the layers' gradients in one pass, where
+    indexing each layer would add a zero tensor of the whole stack per layer."""
+    split = tree_map(lambda a: a.unbind(0), tree)
+    n = len(tree_leaves(split)[0])
+    return [tree_map(lambda layers: layers[i], split) for i in range(n)]
 
 
 def count_params(params) -> int:

@@ -96,8 +96,8 @@ def test_chunked_attention_matches_reference():
     arrs = _qkv_np(3, 1, 2, 2, 512, 32)
     want = ref_ops._xla_attention_chunked(*_to_jax(arrs, "float32"), causal=True,
                                           window=100, scale=None, q_chunk=128)
-    got = ops._attention_chunked(*_to_torch(arrs, "float32"), causal=True, window=100,
-                                 scale=None, q_chunk=128)
+    got = ref.attention_chunked(*_to_torch(arrs, "float32"), causal=True, window=100,
+                                scale=None, q_chunk=128)
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 

@@ -74,6 +74,30 @@ def test_ssd_plain_paths_match_reference(shape):
     _close(sh, want_h, 1e-4)
 
 
+def test_chunked_ssd_gradient_stays_finite_past_fp32_exp_range():
+    """A chunk as wide as mamba2-130m's (256 steps of softplus(N(0, 1)) at
+    a = -1) decays by about e^-180, so the exponent above the diagonal
+    overflows fp32. The port's plain chunked SSD keeps its gradient finite and
+    equal to the sequential oracle's; the reference's chunked path gives NaN
+    there (ROADMAP Queue C item 3)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1, 256, 2, 8), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((1, 256, 2), dtype=np.float32)))
+    a = -np.ones(2, np.float32)
+    bm, cm = (rng.standard_normal((1, 256, 1, 8), dtype=np.float32) for _ in range(2))
+    cot = rng.standard_normal(x.shape, dtype=np.float32)
+    ref_grads = jax.grad(lambda *t: (jref.ssd_chunked_ref(*t, 256)[0] * cot).sum(),
+                         argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(t) for t in (x, dt, a, bm, cm)))
+    assert not all(np.isfinite(np.asarray(g)).all() for g in ref_grads)
+    ts = [torch.from_numpy(t).requires_grad_() for t in (x, dt, a, bm, cm)]
+    losses = [(y * torch.from_numpy(cot)).sum() + h.sum()
+              for y, h in (ref.ssd_chunked_ref(*ts, 256), ref.ssd_sequential(*ts))]
+    got, want = (torch.autograd.grad(loss, ts) for loss in losses)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+
+
 def test_ssd_bf16_matches_sequential_reference():
     arrs = _ssd_np(21, 1, 128, 2, 32, 1, 16)
     jx = jnp.asarray(arrs[0]).astype(jnp.bfloat16)
