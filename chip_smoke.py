@@ -7,9 +7,12 @@ d_model 768) through the SSD-scan kernel; recurrentgemma-9b (hybrid; 38
 layers, d_model 4096) through the RG-LRU-scan kernel and the flash kernel's
 local window. Each model is prefilled and served greedily through the AMP4EC
 NSA scheduler, then trained a few steps (AdamW, remat, gradients through the
-kernels' autograd Functions). The script builds every kernel from the
-sources in the checkout, holds each against its plain PyTorch version on the
-card, times it (and its backward, the plain version's VJP) beside its bound,
+kernels' autograd Functions). Then the paper's own model, MobileNetV2, is
+partitioned, verified and served on the card through the port's copy of the
+AMP4EC control plane (``DistributedInference``); it reaches none of the
+repo's kernels (its convolutions are cuDNN's). The script builds every
+kernel from the sources in the checkout, holds each against its plain
+PyTorch version on the card, times it (and its backward, the plain version's VJP) beside its bound,
 its plain version and the closest PyTorch library call, and checks that each
 path launched its kernels: every count is set to 0 just before a path's
 prefill or training step and read just after.
@@ -39,7 +42,15 @@ Phases (any failure exits non-zero):
       checkpoint round trip on the card
   16. full-width recurrentgemma-9b cut to 5 layers (one super-block and both
       tails) training at (1, 4096 + 1), past the 2048 window
-  17. one JSON line of kernels, the card line, then the device line last
+  17. MobileNetV2 at the paper's batch, (32, 224, 224, 3) fp32: partition
+      sizes [116, 25] / [108, 16, 17]; the card against the CPU on the same
+      seeded weights (1e-5, TF32 off); verify_numerics and a repeated cached
+      infer through DistributedInference on the paper cluster (no kernel of
+      the repo launched); the quickstart's run(100) rows (simulated edge ms);
+      forward and partition times at batch 1 and 32, launches, busy share,
+      copy kernels and peak memory
+  18. JSON lines of the training, MobileNetV2 and kernel results, the card
+      line, then the device line last
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -64,12 +75,15 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.cluster import make_paper_cluster  # noqa: E402
+from repro_torch.core import (DistributedInference, EdgeCluster,  # noqa: E402
+                              ModelPartitioner, make_paper_cluster, run_monolithic)
 from repro_torch.data import DataConfig, batches_for_model  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from repro_torch.models.graph import mobilenetv2_graph  # noqa: E402
+from repro_torch.models.mobilenetv2 import build_mobilenetv2, run_full, run_range  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.optim import adamw, cosine_with_warmup  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
@@ -87,6 +101,7 @@ HYBRID = dict(b=1, hq=16, hkv=1, s=4096, d=256, window=2048)
 # mamba2-130m SSD at its (2, 2048) prefill: (B, L, H, P, G, N, chunk)
 SSD_MAIN = dict(B=2, L=2048, H=24, P=64, G=1, N=128, chunk=256)
 RGLRU_MAIN = dict(B=1, L=4096, W=4096)           # recurrentgemma-9b RG-LRU prefill
+MNV2_INPUT = (32, 224, 224, 3)   # the paper's batch of 32 at MobileNetV2's IMAGE_SIZE, NHWC
 #: the kernels' wrappers, whose ``launches`` count their kernel launches
 KERNELS = {"flash_attention": fa.flash_attention, "ssd_scan": ss.ssd_scan,
            "rglru_scan": rg.rglru_scan}
@@ -656,6 +671,12 @@ def profile_call(fn, label: str, device_line: str) -> dict:
     copies = [e for e in kernels if "copy" in e.key.lower()]
     log(f"    copy kernels: {sum(e.count for e in copies)} launches, "
         f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms")
+    for e in copies:
+        log(f"      x{e.count:<4d} {e.key[:100]}")
+    # cuDNN's own layout transforms, which do not say "copy"
+    layout = [e for e in kernels if any(k in e.key.lower() for k in ("nchwtonhwc", "nhwctonchw"))]
+    log(f"    cuDNN layout transforms: {sum(e.count for e in layout)} launches, "
+        f"{sum(e.self_device_time_total for e in layout) / 1e3:.3f} ms")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     # the eight largest, and this repo's kernels wherever they rank
     ours = [e for e in ranked[8:] if any(k in e.key for k in ("flash_fwd", "ssd_", "rglru_fwd"))]
@@ -663,7 +684,9 @@ def profile_call(fn, label: str, device_line: str) -> dict:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {100 * e.self_device_time_total / busy_us:5.1f}%"
             f"  x{e.count:<4d} {e.key[:90]}")
     out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
-               launches=sum(e.count for e in kernels), backward_ms={})
+               launches=sum(e.count for e in kernels),
+               copy_launches=sum(e.count for e in copies),
+               layout_launches=sum(e.count for e in layout), backward_ms={})
     for name, rng in BACKWARD_RANGES.items():
         host = [e for e in events if e.key == rng and e.device_type != torch.autograd.DeviceType.CUDA]
         if not host:
@@ -871,6 +894,97 @@ def phase_train(cfg, batch: int, seq: int, steps: int, device_line: str, *,
     return dict(steps=rows, profile=prof, launches=rows[0]["launches"])
 
 
+def phase_mobilenetv2(device_line: str) -> dict:
+    """The paper's flow on the card (``examples/quickstart.py``): MobileNetV2
+    partitioned, verified and served through the port's DistributedInference,
+    then timed and profiled. Reaches none of the repo's kernels."""
+    graph = mobilenetv2_graph()
+    sizes = {n: ModelPartitioner(graph).plan(n).sizes for n in (2, 3)}
+    log(f"  ModelPartitioner(mobilenetv2_graph()): 2-way {sizes[2]}, 3-way {sizes[3]} "
+        "(paper: [116, 25], [108, 16, 17])")
+    assert sizes == {2: [116, 25], 3: [108, 16, 17]}, sizes
+    gpu = build_mobilenetv2(torch.Generator().manual_seed(SEED), device="cuda")
+    cpu = build_mobilenetv2(torch.Generator().manual_seed(SEED), device="cpu")
+    x_cpu = torch.randn(MNV2_INPUT, generator=torch.Generator().manual_seed(SEED + 3))
+    x = x_cpu.cuda()
+    executor = lambda lo, hi, h, res: run_range(gpu, lo, hi, h, res)  # noqa: E731
+
+    # the main path: deploy-time verification, then one request twice
+    # through the result cache; its counts are zeroed before and read after
+    reset_counts()
+    amp = DistributedInference(make_paper_cluster(), ModelPartitioner(graph), executor=executor)
+    assert amp.verify_numerics(x), "partitioned forward diverged from the monolithic one"
+    cached = DistributedInference(make_paper_cluster(), ModelPartitioner(graph),
+                                  executor=executor, use_cache=True)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        walls.append((cached.infer(x), time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    launches = read_counts()
+    assert not any(launches.values()), f"MobileNetV2 reached a kernel of the repo: {launches}"
+    (y1, miss_s), (y2, hit_s) = walls
+    stages = len(cached.plan.partitions)
+    assert (cached.cache.hits, cached.cache.misses) == (stages, stages), cached.cache.stats()
+    assert y2 is y1
+    parts = [(p.lo, p.hi) for p in amp.plan.partitions]
+    log(f"  [{device_line}] verify_numerics on CUDA tensors {tuple(x.shape)}: True; plan {parts} "
+        f"on {sorted(amp.placement.values())}; infer with the cache: first call {stages} misses "
+        f"in {miss_s * 1e3:.3f} ms of wall, second call {stages} hits in {hit_s * 1e3:.3f} ms "
+        "(the input's digest, on the host), the same tensor")
+
+    y = run_full(gpu, x)
+    y_cpu = run_full(cpu, x_cpu)
+    err = float((y.cpu() - y_cpu).abs().max())
+    close = torch.allclose(y.cpu(), y_cpu, rtol=1e-5, atol=1e-5)
+    log(f"  monolithic forward {tuple(x.shape)} fp32 (TF32 off), card vs CPU on the same seeded "
+        f"weights: max|d| = {err:.3e} (|y| up to {float(y_cpu.abs().max()):.3e}; tolerance 1e-5) "
+        f"{'ok' if close else 'FAIL'}")
+    assert close and bool(torch.isfinite(y).all()) and y.shape == (MNV2_INPUT[0], 1000)
+    assert torch.allclose(y1, y, rtol=1e-5, atol=1e-5)
+
+    mono_cluster = EdgeCluster()
+    mono_cluster.add_node("mono", "monolithic")
+    rows = [run_monolithic(mono_cluster, ModelPartitioner(graph), 100),
+            amp.run(100, name="amp4ec"),
+            DistributedInference(make_paper_cluster(), ModelPartitioner(graph),
+                                 use_cache=True).run(100, repeat_rate=0.8, name="amp4ec+cache")]
+    sim = {r.name: dict(latency_ms=r.steady_latency_ms, throughput_rps=r.throughput_rps)
+           for r in rows}
+    log("  run(100), simulated edge-cluster ms from the cost model (not device time): "
+        + json.dumps(sim))
+
+    timing = {}
+    for batch in (1, MNV2_INPUT[0]):
+        xb = x[:batch].contiguous()
+        iters = 50 if batch == 1 else 20
+        row = dict(forward_ms=cuda_ms(lambda: run_full(gpu, xb), iters), partitions_ms=[])
+        h, res = xb, None
+        for lo, hi in parts:
+            row["partitions_ms"].append(
+                cuda_ms(lambda h=h, res=res, lo=lo, hi=hi: run_range(gpu, lo, hi, h, res), iters))
+            h, res = run_range(gpu, lo, hi, h, res)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run_full(gpu, xb)
+        torch.cuda.synchronize()
+        row["peak_allocated_mb"] = torch.cuda.max_memory_allocated() / 1e6
+        row["forward_peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 1e6
+        log(f"  [{device_line}] batch {batch}: forward {row['forward_ms']:.4f} ms "
+            f"(CUDA events, {iters} calls); partitions {parts}: "
+            + ", ".join(f"{t:.4f}" for t in row["partitions_ms"])
+            + f" ms; peak allocated {row['peak_allocated_mb']:.1f} MB "
+            f"({row['forward_peak_mb']:.1f} MB above the weights and inputs)")
+        row["profile"] = profile_call(lambda: run_full(gpu, xb), f"MobileNetV2 forward, batch {batch}",
+                                      device_line)
+        assert row["profile"], "the profiler recorded no device time"
+        timing[batch] = row
+    return dict(launches=launches, sizes=sizes, max_abs_err=err, simulated=sim,
+                infer_wall_ms=[miss_s * 1e3, hit_s * 1e3], timing=timing)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -918,7 +1032,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(train_runs)
 
-    log("phase 17: results")
+    log(f"phase 17: MobileNetV2 {MNV2_INPUT} through DistributedInference on the paper cluster")
+    mnv2 = phase_mobilenetv2(device_line)
+    paths[f"mobilenetv2 {MNV2_INPUT} through DistributedInference"] = mnv2
+
+    log("phase 18: results")
     kernels = []
     for name, source, replaces in (
             ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:30"),
@@ -932,6 +1050,7 @@ def main() -> int:
             replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=cases[name][0]["max_abs_err"], **t, cases=cases[name]))
     print(json.dumps({"training": train_runs, "grad_max_abs_err": grads}))
+    print(json.dumps({"mobilenetv2": mnv2, "device": device_line}))
     print(json.dumps({"kernels": kernels}))
     print(device_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -140,3 +140,24 @@ def from_jax(params_np, device="cuda"):
                                                               dtype=torch.bfloat16)
         return torch.from_numpy(np.array(arr)).to(device)  # a writable copy
     return tree_map(conv, params_np)
+
+
+def mobilenetv2_from_jax(ref_leaves_or_params, device="cuda"):
+    """The port's MobileNetV2 leaves carrying the reference's weights.
+
+    ``ref_leaves_or_params``: the reference's 141 leaves
+    (``repro.models.mobilenetv2.build_mobilenetv2``) or their ``params``
+    dicts, in order. Each dict goes through :func:`from_jax`; the leaves
+    convert HWIO conv weights to their OIHW channels-last layout.
+    """
+    from repro_torch.models.mobilenetv2 import build_mobilenetv2  # models sit above utils
+
+    leaves = build_mobilenetv2(device=device)
+    refs = list(ref_leaves_or_params)
+    if len(refs) != len(leaves):
+        raise ValueError(f"expected {len(leaves)} leaves, got {len(refs)}")
+    with torch.no_grad():
+        for leaf, ref in zip(leaves, refs):
+            params = getattr(ref, "params", ref)
+            leaf.load_reference(from_jax(params, device))
+    return leaves

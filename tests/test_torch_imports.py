@@ -22,8 +22,9 @@ def test_no_source_imports_jax_or_repro():
 
 
 def test_imports_and_runs_without_jax():
-    """Every module imports, and a tiny forward of each ported family runs,
-    with JAX unimportable."""
+    """Every module imports, a tiny forward of each ported family runs, and
+    MobileNetV2 is verified and served through the port's
+    ``DistributedInference``, with JAX unimportable."""
     code = textwrap.dedent("""
         import importlib, pathlib, sys
         sys.modules["jax"] = None
@@ -43,6 +44,14 @@ def test_imports_and_runs_without_jax():
             logits, _, _ = model.forward(params,
                                          {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
             assert logits.shape == (1, 4, cfg.padded_vocab) and torch.isfinite(logits).all()
+        from repro_torch.core import DistributedInference, ModelPartitioner, make_paper_cluster
+        from repro_torch.models.graph import mobilenetv2_graph
+        from repro_torch.models.mobilenetv2 import build_mobilenetv2, run_range
+        leaves = build_mobilenetv2(device="cpu")
+        amp = DistributedInference(make_paper_cluster(), ModelPartitioner(mobilenetv2_graph()),
+                                   executor=lambda lo, hi, x, res: run_range(leaves, lo, hi, x, res))
+        assert amp.verify_numerics(torch.randn(1, 64, 64, 3, generator=torch.Generator().manual_seed(0)))
+        assert amp.run(10).throughput_rps > 0
         assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
                        if sys.modules[m] is not None)
         print(len(names))
