@@ -10,7 +10,11 @@ NSA scheduler, then trained a few steps (AdamW, remat, gradients through the
 kernels' autograd Functions). Then the paper's own model, MobileNetV2, is
 partitioned, verified and served on the card through the port's copy of the
 AMP4EC control plane (``DistributedInference``); it reaches none of the
-repo's kernels (its convolutions are cuDNN's). The script builds every
+repo's kernels (its convolutions are cuDNN's). Last, deepseek-v2-236b (MoE
+with multi-head latent attention; d_model 5120, 128 heads, 160 routed
+experts top-6 and 2 shared, bf16) at full width cut to 4 layers (one dense
+MLA block, three MLA-MoE blocks: 13.3 B parameters) is prefilled through
+the flash kernel at D = 192, Dv = 128 and served. The script builds every
 kernel from the sources in the checkout, holds each against its plain
 PyTorch version on the card, times it (and its backward, the plain version's VJP) beside its bound,
 its plain version and the closest PyTorch library call, and checks that each
@@ -24,8 +28,11 @@ Phases (any failure exits non-zero):
      or CUDA cores), the model's strided (B, S, H, D) views included; the
      RG-LRU scan also with long memory (a in [0.99, 1) and a = 1), against
      an fp64 loop too
+     and DeepSeek-V2's MLA prefill (1, 128, 4096, D 192 / Dv 128, scale
+     1/sqrt(192)) with the reduced MLA's D 48 / Dv 32 in fp32
   3. timing at the main-path shapes (CUDA events), TFLOP/s and share of the
-     bound of each kernel; flash also at the qwen prefill's own call; the
+     bound of each kernel; flash also at the qwen prefill's own call and at
+     the MLA prefill's (with the SDPA backends that take Dv != D); the
      RG-LRU scan in fp32 and bf16 beside a same-bytes torch.add pass
   4-6. qwen2.5-3b: prefill (launches, finite logits, profile with its count
      of copy kernels), fp32
@@ -33,8 +40,9 @@ Phases (any failure exits non-zero):
   7-9. mamba2-130m: the same three
   10-12. recurrentgemma-9b: the same three (the fp32 check at depth 5)
   13. loss gradients on the card (through the kernels) against the CPU, for
-      reduced qwen2.5-3b, mamba2-130m and recurrentgemma-9b in fp32, remat
-      off and on: every leaf, within 1e-4
+      reduced qwen2.5-3b, mamba2-130m, recurrentgemma-9b, deepseek-v2-236b
+      and kimi-k2-1t-a32b in fp32, remat off and on: every leaf, within 1e-4
+      (the MoE routing on both devices compared, any top-k flip reported)
   14. full-width qwen2.5-3b training: 3 steps at (2, 512 + 1), bf16 params,
       fp32 moments, remat (launches per step, every leaf moved, peak
       memory), then one step under the profiler
@@ -49,7 +57,13 @@ Phases (any failure exits non-zero):
       the repo launched); the quickstart's run(100) rows (simulated edge ms);
       forward and partition times at batch 1 and 32, launches, busy share,
       copy kernels and peak memory
-  18. JSON lines of the training, MobileNetV2 and kernel results, the card
+  18-20. deepseek-v2-236b, full width cut to 4 layers: prefill (1, 4096)
+      (one flash launch per layer, MLA caches), fp32 prefill-vs-decode at 2
+      layers with the drop-free capacity factor 16 (bound 2e-3), serving 8
+      requests and a profiled decode step at batch 4 (every decode step
+      reads all 160 experts of each MoE layer, as the reference's dense
+      capacity buffer does)
+  21. JSON lines of the training, MobileNetV2 and kernel results, the card
       line, then the device line last
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -83,6 +97,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.models.graph import mobilenetv2_graph  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.mobilenetv2 import build_mobilenetv2, run_full, run_range  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.optim import adamw, cosine_with_warmup  # noqa: E402
@@ -101,6 +116,12 @@ HYBRID = dict(b=1, hq=16, hkv=1, s=4096, d=256, window=2048)
 # mamba2-130m SSD at its (2, 2048) prefill: (B, L, H, P, G, N, chunk)
 SSD_MAIN = dict(B=2, L=2048, H=24, P=64, G=1, N=128, chunk=256)
 RGLRU_MAIN = dict(B=1, L=4096, W=4096)           # recurrentgemma-9b RG-LRU prefill
+# deepseek-v2-236b MLA attention at its (1, 4096) prefill: nope 128 + rope 64
+# for q and k, v_head_dim 128, scale 1/sqrt(192)
+MLA_MAIN = dict(b=1, hq=128, hkv=128, s=4096, d=192, dv=128)
+# the reduced MLA (d_model 256, 4 heads, nope 32 + rope 16, v 32) at phase
+# 13's (2, 128) fp32 forward: the CUDA-core variant
+MLA_REDUCED = dict(b=2, hq=4, hkv=4, s=128, d=48, dv=32)
 MNV2_INPUT = (32, 224, 224, 3)   # the paper's batch of 32 at MobileNetV2's IMAGE_SIZE, NHWC
 #: the kernels' wrappers, whose ``launches`` count their kernel launches
 KERNELS = {"flash_attention": fa.flash_attention, "ssd_scan": ss.ssd_scan,
@@ -273,6 +294,25 @@ def flash_vs_plain():
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
         name = f"prefill (2,16,2,512,128) {dtype} on (B,S,H,D) views [{variant}]"
         results.append(dict(check("flash_attention", name, [got], [want], tol), variant=variant))
+    # DeepSeek-V2's MLA: q and k (B, H, S, 192) and v (B, H, S, 128) as
+    # apply_mla hands them over, the scale given as 1/sqrt(nope + rope)
+    for i, (name, shape, dtype, tol, want_variant) in enumerate((
+            ("MLA prefill (1,128,4096,192/128) bf16", MLA_MAIN, torch.bfloat16, 2e-2, "wgmma"),
+            ("MLA reduced (2,4,128,48/32) fp32", MLA_REDUCED, torch.float32, 2e-5,
+             "cuda_core"))):
+        q, k, v = qkv_heads_last(SEED + 60 + i, **shape, dtype=dtype)
+        scale = 1.0 / math.sqrt(shape["d"])
+        variant = fa.route(q, k, v)
+        assert variant == want_variant, (name, variant)
+        got = fa.flash_attention(q, k, v, causal=True, scale=scale)
+        torch.cuda.synchronize()
+        want = ref.attention_ref(q, k, v, causal=True, scale=scale)
+        torch.cuda.synchronize()
+        results.append(dict(check("flash_attention", f"{name} causal scale 1/sqrt({shape['d']}) "
+                                  f"on (B,S,H,D) views [{variant}]", [got], [want], tol),
+                            variant=variant))
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
     return results
 
 
@@ -486,13 +526,74 @@ def flash_timing(device_line: str):
         "flash_attention", "the recurrentgemma training call (1,16,1,4096,256) window 2048",
         lambda: fa.flash_attention_vjp(q, k, v, grad, causal=True, window=w, scale=scale),
         3, device_line)
+    del q, k, v, kr, vr, mask, grad
+    torch.cuda.empty_cache()
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, device_ms=dev_ms, cuda_core_ms=core_ms,
                 backward_ms=pf_bwd, backward_at="qwen training call (2,16,2,512,128) bf16",
                 prefill=dict(ms=pf_ms, plain_ms=pf_plain, library_ms=pf_lib, bound_ms=pf_bound,
                              bound_by=pf_by, device_ms=pf_dev, backward_ms=pf_bwd),
                 hybrid=dict(ms=hy_ms, plain_ms=hy_plain, library_ms=hy_lib, bound_ms=hy_bound,
-                            bound_by=hy_by, device_ms=hy_dev, backward_ms=hy_bwd))
+                            bound_by=hy_by, device_ms=hy_dev, backward_ms=hy_bwd),
+                mla=mla_timing(device_line))
+
+
+def sdpa_backends(q, k, v, scale: float, iters: int) -> dict:
+    """Each SDPA backend on these inputs (causal, the given scale): its ms by
+    CUDA events, or the reason it gave for refusing them."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel(backend), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                sdpa(q, k, v, is_causal=True, scale=scale)
+            except RuntimeError as e:   # "No available kernel": the warnings say why
+                msgs = [str(w.message).split(" (Triggered internally")[0] for w in caught]
+                why = [m for m in msgs if "not used because" not in m
+                       and "runtime disabled" not in m]
+                out[backend.name] = f"refused: {'; '.join(why) or str(e).splitlines()[0]}"
+                continue
+            out[backend.name] = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale),
+                                        iters=iters)
+    return out
+
+
+def mla_timing(device_line: str) -> dict:
+    """The deepseek-v2 MLA prefill's call: (1, 128, 4096), D 192, Dv 128,
+    bf16, causal, scale 1/sqrt(192), on (B, S, H, D) views."""
+    m = MLA_MAIN
+    q, k, v = qkv_heads_last(SEED + 3, **m, dtype=torch.bfloat16)
+    scale = 1.0 / math.sqrt(m["d"])
+    call = lambda: fa.flash_attention(q, k, v, causal=True, scale=scale)  # noqa: E731
+    kernel_ms = cuda_ms(call, iters=20)
+    dev_ms = device_ms(call)
+    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True, scale=scale), iters=2,
+                       warmup=1)
+    backends = sdpa_backends(q, k, v, scale, iters=5)
+    accepted = [b for b, t in backends.items() if not isinstance(t, str)]
+    # the library call: SDPA as a user calls it, on whichever backend it picks
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale), iters=5) if accepted else None
+    pairs = m["s"] * (m["s"] + 1) / 2
+    flops = 2.0 * m["b"] * m["hq"] * pairs * (m["d"] + m["dv"])
+    nb = nbytes(q, k, v) + v.numel() * 2
+    bound_ms, bound_by = bound(flops, nb, PEAK_BF16_FLOPS)
+    log(f"  [{device_line}] flash_attention bf16 (1,128,4096,192/128) causal scale "
+        f"1/sqrt(192) on (B,S,H,D) views (the deepseek-v2 MLA prefill's call), variant "
+        f"{fa.route(q, k, v)}: kernel {kernel_ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, SDPA {'none' if library_ms is None else f'{library_ms:.4f} ms'}"
+        f", bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, {nb / 1e6:.2f} MB); "
+        f"kernel at {flops / kernel_ms / 1e9:.1f} TFLOP/s (device: "
+        f"{flops / dev_ms / 1e9:.1f}) = {100 * bound_ms / kernel_ms:.2f}% of the bf16 roofline")
+    log(f"    SDPA backends at Dv = 128 != D = 192: {json.dumps(backends)}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, device_ms=dev_ms, sdpa_backends=backends)
 
 
 def ssd_timing(device_line: str):
@@ -604,8 +705,8 @@ def expected_launches(model) -> dict:
     kinds = ([cfg.family] * cfg.num_layers if cfg.family != "hybrid"
              else [k for _ in range(model._n_super) for k in model._pattern]
              + [model._tail_kind(t) for t in range(model._n_tail)])
-    per_kind = {"dense": "flash_attention", "attn": "flash_attention", "ssm": "ssd_scan",
-                "rec": "rglru_scan"}
+    per_kind = {"dense": "flash_attention", "moe": "flash_attention", "attn": "flash_attention",
+                "ssm": "ssd_scan", "rec": "rglru_scan"}
     return {name: sum(per_kind[k] == name for k in kinds) for name in KERNELS}
 
 
@@ -620,9 +721,16 @@ def leaves(tree, path="") -> dict:
 def reference_cache_shapes(model, batch: int, seq: int) -> dict:
     """The reference's prefill cache shapes (``repro.models.model.forward``)."""
     cfg = model.cfg
-    if cfg.family == "dense":
-        kv = (cfg.num_layers, batch, cfg.num_kv_heads, seq, cfg.head_dim_)
-        return {"/kv/0": kv, "/kv/1": kv}
+    if cfg.family in ("dense", "moe"):
+        fd = cfg.first_dense_layers if cfg.family == "moe" else 0
+        if cfg.use_mla:     # (c_kv, k_rope)
+            per_layer = ((batch, seq, cfg.kv_lora_rank), (batch, seq, cfg.qk_rope_head_dim))
+        else:               # (k, v)
+            per_layer = ((batch, cfg.num_kv_heads, seq, cfg.head_dim_),) * 2
+        out = {f"/kv/{i}": (cfg.num_layers - fd,) + shape for i, shape in enumerate(per_layer)}
+        if fd:
+            out.update({f"/dense_kv/{i}": (fd,) + shape for i, shape in enumerate(per_layer)})
+        return out
     if cfg.family == "ssm":
         d_inner = cfg.ssm_expand * cfg.d_model
         nconv = d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
@@ -702,8 +810,13 @@ def profile_call(fn, label: str, device_line: str) -> dict:
 
 
 def phase_consistency(cfg) -> float:
-    """fp32 train forward (through the kernels) against 16 decode steps."""
+    """fp32 train forward (through the kernels) against 16 decode steps; MoE
+    at the reference test's capacity factor 16 (tests/test_models.py:84-92),
+    since the forward drops tokens at capacity and single-token decode never
+    does."""
     cfg32 = dataclasses.replace(cfg, dtype="float32")
+    if cfg.family == "moe":
+        cfg32 = dataclasses.replace(cfg32, capacity_factor=16.0)
     model = Model(cfg32)
     params, _ = model.init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -720,9 +833,10 @@ def phase_consistency(cfg) -> float:
             logits, cache = model.decode_step(params, tokens[:, t], cache)
             err = max(err, float((logits[0, :v] - fwd[0, t, :v]).abs().max()))
     torch.cuda.synchronize()
-    log(f"  fp32 {cfg.name} ({cfg.num_layers} layers) train forward "
-        f"({expected_launches(model)}) vs 16 decode steps: max|dlogit| = {err:.3e} "
-        f"(bound 2e-3)")
+    log(f"  fp32 {cfg.name} ({cfg.num_layers} layers, {model.param_count(params) / 1e9:.3f} B "
+        f"parameters) train forward ({expected_launches(model)}) vs 16 decode steps: "
+        f"max|dlogit| = {err:.3e} (bound 2e-3); max allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     assert err < 2e-3, f"prefill-vs-decode max err {err}"
     del model, params
     torch.cuda.empty_cache()
@@ -752,24 +866,36 @@ def phase_serving(cfg, params, device_line: str):
     cache, _ = engine.model.init_cache(4, 25, device="cuda")
     token = torch.zeros(4, dtype=torch.int32, device="cuda")
     with torch.no_grad():
-        engine.model.decode_step(params, token, cache)
+        step_ms = cuda_ms(lambda: engine.model.decode_step(params, token, cache), iters=5,
+                          warmup=1)
+        log(f"  [{device_line}] one decode step (batch 4): {step_ms:.4f} ms (CUDA events, "
+            f"5 steps)")
         profile_call(lambda: engine.model.decode_step(params, token, cache),
                      "one decode step (batch 4)", device_line)
     return wall
 
 
 def drive(arch: str, first: int, batch: int, seq: int, device_line: str,
-          consistency_layers: int = 0) -> dict:
-    """Prefill, fp32 consistency and serving of one model at full width."""
+          consistency_layers: int = 0, num_layers: int = 0) -> dict:
+    """Prefill, fp32 consistency and serving of one model at full width, its
+    depth cut to ``num_layers`` where that is given."""
     cfg = get_config(arch)
-    log(f"phase {first}: full-width {arch} prefill")
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    depth = f", depth cut to {num_layers}" if num_layers else ""
+    log(f"phase {first}: full-width {arch} prefill{depth}")
+    torch.cuda.reset_peak_memory_stats()
     model = Model(cfg)
     params, _ = model.init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     log(f"  {model.param_count(params) / 1e9:.3f} B parameters, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"({torch.cuda.max_memory_allocated() / 1e9:.2f} GB at most during init)")
+    torch.cuda.reset_peak_memory_stats()
     out = phase_prefill(model, params, batch, seq, device_line)
+    log(f"  max allocated over the prefills {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     cut = f", depth cut to {consistency_layers}" if consistency_layers else ""
     log(f"phase {first + 1}: full-width fp32 prefill vs decode{cut}")
+    torch.cuda.reset_peak_memory_stats()
     phase_consistency(dataclasses.replace(cfg, num_layers=consistency_layers or cfg.num_layers))
     log(f"phase {first + 2}: {arch} serving")
     phase_serving(cfg, params, device_line)
@@ -787,17 +913,58 @@ def loss_grads(model, params, tokens, remat: bool):
     return loss.detach(), dict(zip(leaves(params), grads))
 
 
+def routing(model, params, tokens) -> list:
+    """(probs, top-k experts) of every MoE layer in one forward, in the
+    router's fp32 on the device of ``params``."""
+    seen, inner = [], moe._dispatch_compute
+
+    def spy(x, router_w, *args, top_k, **kw):
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        seen.append((probs.cpu(), torch.topk(probs, top_k)[1].cpu()))
+        return inner(x, router_w, *args, top_k=top_k, **kw)
+
+    moe._dispatch_compute = spy
+    try:
+        with torch.no_grad():
+            model.forward(params, {"tokens": tokens[:, :-1]}, mode="train")
+    finally:
+        moe._dispatch_compute = inner
+    return seen
+
+
+def routing_flips(model, params, tokens) -> int:
+    """Tokens whose top-k experts differ between the card and the CPU, each
+    logged with its two probability rows; the count."""
+    flips = 0
+    cpu = routing(model, params, tokens)
+    card = routing(model, tree_map(lambda p: p.cuda(), params), tokens.cuda())
+    for layer, ((p_cpu, i_cpu), (p_card, i_card)) in enumerate(zip(cpu, card)):
+        for t in torch.nonzero((i_cpu.sort(-1)[0] != i_card.sort(-1)[0]).any(-1)).ravel():
+            flips += 1
+            log(f"  top-k flip: MoE layer {layer}, token {int(t)}: CPU experts "
+                f"{i_cpu[t].tolist()} probs {p_cpu[t].tolist()}; card experts "
+                f"{i_card[t].tolist()} probs {p_card[t].tolist()}")
+    return flips
+
+
 def phase_grads() -> dict:
     """Queue C item 1: loss gradients on the card, through the kernels'
     autograd Functions, against the CPU's plain path on the same fp32
-    parameters and tokens; every leaf finite and within 1e-4."""
+    parameters and tokens; every leaf finite and within 1e-4. For the MoE
+    archs the router's top-k on both devices is compared first (the scatter
+    and gather backward then run on the card too)."""
     out = {}
-    for arch in ("qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b"):
+    for arch in ("qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b", "deepseek-v2-236b",
+                 "kimi-k2-1t-a32b"):
         model = Model(dataclasses.replace(get_config(arch).reduced(), dtype="float32"))
         params, _ = model.init(torch.Generator().manual_seed(SEED), device="cpu")
         rng = np.random.default_rng(SEED)
         tokens = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (2, 129))
                                   .astype(np.int32))
+        if model.cfg.family == "moe":
+            flips = routing_flips(model, params, tokens)
+            log(f"  {arch}: router top-k on the card vs the CPU over {2 * 128} tokens per MoE "
+                f"layer: {flips} tokens differ")
         worst = 0.0
         for remat in (False, True):
             want_loss, want = loss_grads(model, params, tokens, remat)
@@ -1035,8 +1202,15 @@ def main() -> int:
     log(f"phase 17: MobileNetV2 {MNV2_INPUT} through DistributedInference on the paper cluster")
     mnv2 = phase_mobilenetv2(device_line)
     paths[f"mobilenetv2 {MNV2_INPUT} through DistributedInference"] = mnv2
+    torch.cuda.empty_cache()
 
-    log("phase 18: results")
+    # 236 B parameters (472 GB in bf16) do not fit on the card: full width,
+    # depth cut to the dense MLA block and three MLA-MoE blocks (26.6 GB); the
+    # fp32 check keeps the dense block and one MoE block (21.4 GB in fp32)
+    paths["deepseek-v2-236b (4 layers) prefill (1, 4096)"] = drive(
+        "deepseek-v2-236b", 18, 1, 4096, device_line, consistency_layers=2, num_layers=4)
+
+    log("phase 21: results")
     kernels = []
     for name, source, replaces in (
             ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:30"),

@@ -1,5 +1,5 @@
-"""The unified model: the dense, SSM (mamba2) and hybrid (recurrentgemma)
-families.
+"""The unified model: the dense, MoE (with MLA: deepseek-v2), SSM (mamba2)
+and hybrid (recurrentgemma) families.
 
 One ``Model`` object per ``ModelConfig`` exposes, as the reference does:
 
@@ -10,7 +10,8 @@ One ``Model`` object per ``ModelConfig`` exposes, as the reference does:
   decode_step(params, token, cache)  -> (logits, cache)
 
 Parameters keep the reference's tree, with the layers stacked on a leading
-axis under ``"blocks"`` (the hybrid family: repeating super-blocks under
+axis under ``"blocks"`` (the MoE family's leading dense layers under
+``"dense_blocks"``; the hybrid family: repeating super-blocks under
 ``"super"`` and the leftover layers as ``"tail{t}"``); the reference's
 ``lax.scan`` over layers is a Python loop over layer slices, and the port
 runs eagerly. ``remat`` recomputes each block in the backward
@@ -27,23 +28,28 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.utils.params import ParamBuilder, count_params, layer_slices, stack_layers
 
-#: the ROADMAP item that ports each family still missing here
-_FAMILY_ITEMS = {
-    "moe": "ROADMAP Queue A item 13 (MoE on one device)",
-    "audio": "ROADMAP Queue A item 14 (audio and VLM families)",
-    "vlm": "ROADMAP Queue A item 14 (audio and VLM families)",
-}
+#: the families still missing here, with the ROADMAP item that ports them
+_UNPORTED = ("audio", "vlm")
+_UNPORTED_ITEM = "ROADMAP Queue A item 14 (audio and VLM families)"
 
 
-def _init_dense_block(b: ParamBuilder, cfg: ModelConfig):
+def _init_dense_block(b: ParamBuilder, cfg: ModelConfig, use_moe: bool):
     L.init_norm(b, "ln1", cfg.d_model, cfg.norm)
-    L.init_attention(b, "attn", cfg)
+    if cfg.use_mla:
+        MLA.init_mla(b, "attn", cfg)
+    else:
+        L.init_attention(b, "attn", cfg)
     L.init_norm(b, "ln2", cfg.d_model, cfg.norm)
-    L.init_mlp(b, "ffn", cfg)
+    if use_moe:
+        MOE.init_moe(b, "ffn", cfg)
+    else:
+        L.init_mlp(b, "ffn", cfg)
 
 
 def _init_ssm_block(b: ParamBuilder, cfg: ModelConfig):
@@ -85,10 +91,9 @@ def _stack_states(states: list):
 class Model:
     def __init__(self, cfg: ModelConfig):
         cfg.validate()
-        if cfg.family not in ("dense", "ssm", "hybrid") or cfg.use_mla:
-            item = _FAMILY_ITEMS.get(cfg.family, "ROADMAP Queue A item 12 (MLA)")
+        if cfg.family in _UNPORTED:
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet; see {item}")
+                f"{cfg.name}: the {cfg.family} family is not ported yet; see {_UNPORTED_ITEM}")
         self.cfg = cfg
 
     # -- structure helpers --------------------------------------------------
@@ -112,6 +117,11 @@ class Model:
     def _tail_kind(self, t: int) -> str:
         return self._pattern[t % len(self._pattern)]
 
+    @property
+    def _n_dense_first(self) -> int:
+        """The MoE family's leading dense layers (``"dense_blocks"``)."""
+        return self.cfg.first_dense_layers if self.cfg.family == "moe" else 0
+
     # -- init ---------------------------------------------------------------
 
     def init(self, generator: Optional[torch.Generator] = None, *, device="cuda"):
@@ -126,9 +136,16 @@ class Model:
         L.init_embed(b, cfg)
         L.init_norm(b, "final_norm", cfg.d_model, cfg.norm)
         params, specs = b.build()
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
+            fd = self._n_dense_first
+            if fd:
+                params["dense_blocks"], specs["dense_blocks"] = _stack_init(
+                    generator, fd, lambda bb: _init_dense_block(bb, cfg, use_moe=False),
+                    dtype, device)
             params["blocks"], specs["blocks"] = _stack_init(
-                generator, cfg.num_layers, lambda bb: _init_dense_block(bb, cfg), dtype, device)
+                generator, cfg.num_layers - fd,
+                lambda bb: _init_dense_block(bb, cfg, use_moe=cfg.family == "moe"),
+                dtype, device)
         elif cfg.family == "ssm":
             params["blocks"], specs["blocks"] = _stack_init(
                 generator, cfg.num_layers, lambda bb: _init_ssm_block(bb, cfg), dtype, device)
@@ -146,15 +163,24 @@ class Model:
 
     # -- block applications (full sequence) ---------------------------------
 
-    def _dense_block(self, p, x, positions, *, window, collect_kv=False):
+    def _dense_block(self, p, x, positions, *, window, use_moe, collect_kv=False):
+        """One block of the dense and MoE families; returns (x, aux, kv), kv
+        being (k, v) or, under MLA, (c_kv, k_rope). MLA takes no window."""
         cfg = self.cfg
         h = L.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-        attn_out, kv = L.apply_attention(p["attn"], h, cfg, positions, causal=True,
-                                         window=window)
+        if cfg.use_mla:
+            attn_out, kv = MLA.apply_mla(p["attn"], h, cfg, positions)
+        else:
+            attn_out, kv = L.apply_attention(p["attn"], h, cfg, positions, causal=True,
+                                             window=window)
         x = x + attn_out
         h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
-        x = x + L.apply_mlp(p["ffn"], h, cfg)
-        return x, (kv if collect_kv else None)
+        if use_moe:
+            ffn_out, aux = MOE.apply_moe(p["ffn"], h, cfg)
+        else:
+            ffn_out = L.apply_mlp(p["ffn"], h, cfg)
+            aux = torch.zeros((1,), dtype=torch.float32, device=x.device)
+        return x + ffn_out, aux, (kv if collect_kv else None)
 
     def _hybrid_block(self, p, kind: str, x, positions, *, collect: bool):
         """One rec or attn block of the hybrid family; returns (x, state), the
@@ -206,10 +232,12 @@ class Model:
         batch: {"tokens": (B, S) int}
         Returns (logits (B, S, V), aux_loss scalar, cache_or_None).
         mode: "train" (logits over all positions) or "prefill" (last-position
-        logits and the reference's prefill cache: the dense family's stacked
-        (L, B, Hkv, S, hd) K/V, the SSM family's stacked {"conv", "ssm"}
-        states, the hybrid family's per-super-block states under "super" and
-        each tail's under "tail{t}").
+        logits and the reference's prefill cache: the dense and MoE families'
+        stacked (L, B, Hkv, S, hd) K/V under "kv", or under MLA the stacked
+        (c_kv (L, B, S, kv_lora), k_rope (L, B, S, rope)), with the MoE
+        family's leading dense layers under "dense_kv"; the SSM family's
+        stacked {"conv", "ssm"} states, the hybrid family's per-super-block
+        states under "super" and each tail's under "tail{t}").
         remat: recompute each block in the backward instead of keeping its
         activations (every kernel then launches twice per training step).
         """
@@ -227,14 +255,18 @@ class Model:
                 return checkpoint(fn, *args, use_reentrant=False, **kwargs)
             return fn(*args, **kwargs)
 
-        if cfg.family == "dense":
-            kvs = []
-            for p in layer_slices(params["blocks"]):
-                x, kv = block(self._dense_block, p, x, positions, window=window,
-                              collect_kv=collect)
-                kvs.append(kv)
-            if collect:
-                caches["kv"] = _stack_states(kvs)
+        if cfg.family in ("dense", "moe"):
+            stacks = [("dense_kv", "dense_blocks", False)] if self._n_dense_first else []
+            stacks.append(("kv", "blocks", cfg.family == "moe"))
+            for cache_name, stack, use_moe in stacks:
+                kvs = []
+                for p in layer_slices(params[stack]):
+                    x, a, kv = block(self._dense_block, p, x, positions, window=window,
+                                     use_moe=use_moe, collect_kv=collect)
+                    aux_total = aux_total + a.mean()
+                    kvs.append(kv)
+                if collect:
+                    caches[cache_name] = _stack_states(kvs)
         elif cfg.family == "ssm":
             states = []
             for p in layer_slices(params["blocks"]):
@@ -268,8 +300,9 @@ class Model:
     # -- loss ---------------------------------------------------------------
 
     def loss_fn(self, params, batch, *, remat: bool = True):
-        """Next-token cross entropy over ``batch["tokens"]`` (B, S + 1).
-        Returns (loss, nll); the dense family has no auxiliary loss."""
+        """Next-token cross entropy over ``batch["tokens"]`` (B, S + 1), plus
+        ``router_aux_weight`` times the MoE load-balance loss (zero in the
+        other families). Returns (loss, nll)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         logits, aux, _ = self.forward(params, {**batch, "tokens": tokens[:, :-1]},
@@ -296,15 +329,27 @@ class Model:
             specs[name] = axes
 
         kvs = ("layers", "batch", "kv_heads", "kv_seq", None)
-        if cfg.family == "dense":
-            q8 = cfg.kv_cache_dtype == "int8"
-            kvdt = torch.int8 if q8 else dt
-            put("k", (n, batch, cfg.num_kv_heads, cache_len, hd), kvs, kvdt)
-            put("v", (n, batch, cfg.num_kv_heads, cache_len, hd), kvs, kvdt)
-            if q8:
+        if cfg.family in ("dense", "moe"):
+            fd = self._n_dense_first
+            # the MoE family's leading dense layers keep theirs under "d_*"
+            stacks = [("", n - fd)] + ([("d_", fd)] if fd else [])
+            if cfg.use_mla:
+                lat = ("layers", "batch", "kv_seq", None)
+                for pre, m in stacks:
+                    put(pre + "ckv", (m, batch, cache_len, cfg.kv_lora_rank), lat)
+                    put(pre + "krope", (m, batch, cache_len, cfg.qk_rope_head_dim), lat)
+            else:
+                q8 = cfg.kv_cache_dtype == "int8"
+                kvdt = torch.int8 if q8 else dt
                 scs = ("layers", "batch", "kv_heads", "kv_seq")
-                put("k_scale", (n, batch, cfg.num_kv_heads, cache_len), scs, torch.float32)
-                put("v_scale", (n, batch, cfg.num_kv_heads, cache_len), scs, torch.float32)
+                for pre, m in stacks:
+                    put(pre + "k", (m, batch, cfg.num_kv_heads, cache_len, hd), kvs, kvdt)
+                    put(pre + "v", (m, batch, cfg.num_kv_heads, cache_len, hd), kvs, kvdt)
+                    if q8:
+                        put(pre + "k_scale", (m, batch, cfg.num_kv_heads, cache_len), scs,
+                            torch.float32)
+                        put(pre + "v_scale", (m, batch, cfg.num_kv_heads, cache_len), scs,
+                            torch.float32)
         elif cfg.family == "ssm":
             di, H, _, d_bc = SSM.ssm_dims(cfg)
             put("conv", (n, batch, cfg.ssm_conv - 1, di + 2 * d_bc),
@@ -352,29 +397,46 @@ class Model:
         return logits[:, 0, :], new_cache
 
     def _dense_decode(self, params, x, cache, new_cache, pos, window):
+        """The dense and MoE families: the leading dense layers against the
+        "d_*" entries, then the blocks (MoE at T = B in that family)."""
         cfg = self.cfg
-        q8 = cfg.kv_cache_dtype == "int8"
-        kv_names = ("k", "v", "k_scale", "v_scale") if q8 else ("k", "v")
-        outs = [[] for _ in kv_names]
-        for i, p in enumerate(layer_slices(params["blocks"])):
-            c = [cache[n][i] for n in kv_names]
-            h = L.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-            if q8:
-                out, nk, nv, (nks, nvs) = L.apply_attention_decode(
-                    p["attn"], h, cfg, c[0], c[1], pos, window=window,
-                    cache_scales=(c[2], c[3]))
-                nc = (nk, nv, nks, nvs)
-            else:
-                out, nk, nv = L.apply_attention_decode(p["attn"], h, cfg, c[0], c[1], pos,
-                                                       window=window)
-                nc = (nk, nv)
-            x = x + out
-            h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
-            x = x + L.apply_mlp(p["ffn"], h, cfg)
-            for acc, arr in zip(outs, nc):
-                acc.append(arr)
-        for nm, arrs in zip(kv_names, outs):
-            new_cache[nm] = torch.stack(arrs)
+        q8 = not cfg.use_mla and cfg.kv_cache_dtype == "int8"
+        if cfg.use_mla:
+            kv_names = ("ckv", "krope")
+        elif q8:
+            kv_names = ("k", "v", "k_scale", "v_scale")
+        else:
+            kv_names = ("k", "v")
+        stacks = [("d_", "dense_blocks", False)] if self._n_dense_first else []
+        stacks.append(("", "blocks", cfg.family == "moe"))
+        for pre, stack, use_moe in stacks:
+            outs = [[] for _ in kv_names]
+            for i, p in enumerate(layer_slices(params[stack])):
+                c = [cache[pre + n][i] for n in kv_names]
+                h = L.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+                if cfg.use_mla:
+                    out, nckv, nkr = MLA.apply_mla_decode(p["attn"], h, cfg, c[0], c[1], pos)
+                    nc = (nckv, nkr)
+                elif q8:
+                    out, nk, nv, (nks, nvs) = L.apply_attention_decode(
+                        p["attn"], h, cfg, c[0], c[1], pos, window=window,
+                        cache_scales=(c[2], c[3]))
+                    nc = (nk, nv, nks, nvs)
+                else:
+                    out, nk, nv = L.apply_attention_decode(p["attn"], h, cfg, c[0], c[1], pos,
+                                                           window=window)
+                    nc = (nk, nv)
+                x = x + out
+                h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+                if use_moe:
+                    f, _ = MOE.apply_moe(p["ffn"], h, cfg)
+                else:
+                    f = L.apply_mlp(p["ffn"], h, cfg)
+                x = x + f
+                for acc, arr in zip(outs, nc):
+                    acc.append(arr)
+            for nm, arrs in zip(kv_names, outs):
+                new_cache[pre + nm] = torch.stack(arrs)
         return x
 
     def _ssm_decode(self, params, x, cache, new_cache):

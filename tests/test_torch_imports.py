@@ -22,7 +22,8 @@ def test_no_source_imports_jax_or_repro():
 
 
 def test_imports_and_runs_without_jax():
-    """Every module imports, a tiny forward of each ported family runs, and
+    """Every module imports, a tiny forward of each ported family (MoE with
+    MLA and with GQA among them) runs, and
     MobileNetV2 is verified and served through the port's
     ``DistributedInference``, with JAX unimportable."""
     code = textwrap.dedent("""
@@ -37,7 +38,8 @@ def test_imports_and_runs_without_jax():
             importlib.import_module(name)
         from repro_torch.configs import get_config
         from repro_torch.models.model import Model
-        for arch in ("qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b"):
+        for arch in ("qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b", "deepseek-v2-236b",
+                     "kimi-k2-1t-a32b"):
             cfg = get_config(arch).reduced()
             model = Model(cfg)
             params, _ = model.init(torch.Generator().manual_seed(0), device="cpu")

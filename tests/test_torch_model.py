@@ -1,9 +1,13 @@
 """The port's model against the reference in fp32, on reduced configs of
 each ported family: qwen2.5-3b (dense), mamba2-130m (SSM), recurrentgemma-9b
-(hybrid: 2 layers = one (rec, attn) super-block) and a 3-layer hybrid whose
-third layer is a tail block. Train logits, prefill logits and caches, loss,
-and decode steps, from the same converted parameters; plus the reference's
-own consistency checks (``tests/test_models.py``) run on the port.
+(hybrid: 2 layers = one (rec, attn) super-block), a 3-layer hybrid whose
+third layer is a tail block, deepseek-v2-236b (MoE with MLA: one dense
+layer, then one MoE layer), kimi-k2-1t-a32b (MoE with GQA) and a dense
+model with MLA. Train logits and the MoE aux loss, prefill logits and
+caches, loss, and decode steps, from the same converted parameters; plus
+the reference's own consistency checks (``tests/test_models.py``) run on
+the port, the MoE ones at its capacity factor 16 (the forward drops tokens
+at capacity, single-token decode never does).
 
 Tolerance 1e-4 against the reference: a few layers of the same fp32
 arithmetic summed in another order, over logits of magnitude ~10. The
@@ -34,7 +38,13 @@ VARIANTS = {
     "mamba2-130m": ("mamba2-130m", {}),
     "recurrentgemma-9b": ("recurrentgemma-9b", {}),
     "recurrentgemma-9b-tail": ("recurrentgemma-9b", {"num_layers": 3}),
+    "deepseek-v2-236b": ("deepseek-v2-236b", {}),
+    "kimi-k2-1t-a32b": ("kimi-k2-1t-a32b", {}),
+    "dense-mla": ("deepseek-v2-236b", {"family": "dense"}),
 }
+#: the reference's capacity factor for decode-vs-forward checks of MoE
+#: (tests/test_models.py:84-92)
+NO_DROPS = 16.0
 
 
 def _pair(arch="qwen2.5-3b", **changes):
@@ -71,10 +81,12 @@ def test_forward_train_and_prefill_match_reference(model_pair):
     ref_model, ref_params, model, params, toks = model_pair
     batch_j = {"tokens": jnp.asarray(toks[:, :T])}
     batch_t = {"tokens": torch.from_numpy(toks[:, :T])}
-    want, _, _ = jax.jit(lambda p, b: ref_model.forward(p, b, mode="train"))(ref_params,
-                                                                              batch_j)
+    want, want_aux, _ = jax.jit(lambda p, b: ref_model.forward(p, b, mode="train"))(
+        ref_params, batch_j)
     got, aux, cache = model.forward(params, batch_t, mode="train")
-    assert cache is None and float(aux) == 0.0
+    assert cache is None
+    _close(aux, want_aux)
+    assert (float(aux) > 0) if model.cfg.family == "moe" else (float(aux) == 0.0)
     _close(got[..., :model.cfg.vocab_size], want[..., :model.cfg.vocab_size])
     assert torch.all(got[..., model.cfg.vocab_size:] == -1e30)
 
@@ -113,7 +125,9 @@ def test_loss_matches_reference(model_pair):
 
 @pytest.mark.parametrize("variant,kv_cache_dtype", [
     ("qwen2.5-3b", "model"), ("qwen2.5-3b", "int8"), ("mamba2-130m", "model"),
-    ("recurrentgemma-9b", "model"), ("recurrentgemma-9b-tail", "model")])
+    ("recurrentgemma-9b", "model"), ("recurrentgemma-9b-tail", "model"),
+    ("deepseek-v2-236b", "model"), ("kimi-k2-1t-a32b", "model"), ("kimi-k2-1t-a32b", "int8"),
+    ("dense-mla", "model")])
 def test_decode_steps_match_reference(variant, kv_cache_dtype):
     arch, changes = VARIANTS[variant]
     ref_model, ref_params, model, params = _pair(arch, kv_cache_dtype=kv_cache_dtype,
@@ -135,8 +149,11 @@ def test_decode_steps_match_reference(variant, kv_cache_dtype):
 
 
 def test_decode_matches_forward(model_pair):
-    """Sequential decode logits == full-forward logits at every position."""
+    """Sequential decode logits == full-forward logits at every position (MoE
+    at the drop-free capacity factor)."""
     _, _, model, params, toks = model_pair
+    if model.cfg.num_experts:
+        model = Model(dataclasses.replace(model.cfg, capacity_factor=NO_DROPS))
     tokens = torch.from_numpy(toks[:1, :T])
     fwd, _, _ = model.forward(params, {"tokens": tokens}, mode="train")
     cache, _ = model.init_cache(1, 32, device="cpu")
@@ -158,6 +175,26 @@ def test_sliding_window_decode_matches_windowed_forward():
         np.random.default_rng(2).integers(0, cfg.vocab_size, (1, steps)).astype(np.int32))
     fwd, _, _ = model.forward(params, {"tokens": tokens}, mode="train", window=8)
     cache, _ = model.init_cache(1, 8, device="cpu")   # ring buffer of window size
+    for t in range(steps):
+        logits, cache = model.decode_step(params, tokens[:, t], cache, window=8)
+        err = float(torch.max(torch.abs(logits[0, :cfg.vocab_size]
+                                        - fwd[0, t, :cfg.vocab_size])))
+        assert err < 2e-3, f"pos {t}: err {err}"
+
+
+def test_sliding_window_decode_matches_windowed_forward_moe():
+    """The same on kimi-k2 (GQA + MoE): its leading dense layer and its MoE
+    layer both decode against window-sized ring buffers."""
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b").reduced(), dtype="float32",
+                              window=8, capacity_factor=NO_DROPS)
+    model = Model(cfg)
+    params, _ = model.init(torch.Generator().manual_seed(2), device="cpu")
+    steps = 20
+    tokens = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (1, steps)).astype(np.int32))
+    fwd, _, _ = model.forward(params, {"tokens": tokens}, mode="train", window=8)
+    cache, _ = model.init_cache(1, 8, device="cpu")
+    assert cache["d_k"].shape[3] == cache["k"].shape[3] == 8
     for t in range(steps):
         logits, cache = model.decode_step(params, tokens[:, t], cache, window=8)
         err = float(torch.max(torch.abs(logits[0, :cfg.vocab_size]

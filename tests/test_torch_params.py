@@ -14,12 +14,16 @@ from repro.utils.params import count_params as ref_count_params
 from repro.utils.params import tree_bytes as ref_tree_bytes
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models.model import Model
-from repro_torch.utils.params import count_params, from_jax, tree_bytes
+from repro_torch.models.moe import apply_moe
+from repro_torch.utils.params import count_params, from_jax, layer_slices, tree_bytes
 
 DENSE_ARCHS = [a for a in ARCH_IDS if get_config(a).family == "dense"]
 OTHER_ARCHS = [a for a in ARCH_IDS if get_config(a).family != "dense"]
 #: the families ported besides the dense one
-PORTED_ARCHS = [a for a in OTHER_ARCHS if get_config(a).family in ("ssm", "hybrid")]
+PORTED_ARCHS = [a for a in OTHER_ARCHS if get_config(a).family in ("ssm", "hybrid", "moe")]
+#: the archs with a part still to port: the audio and VLM families, and the
+#: MoE family's expert parallelism
+UNPORTED_PARTS = [a for a in OTHER_ARCHS if get_config(a).family not in ("ssm", "hybrid")]
 
 
 def _leaves(tree, prefix=""):
@@ -56,6 +60,23 @@ def test_from_jax_maps_leaf_for_leaf(qwen_ref_params):
     assert tree_bytes(params) == ref_tree_bytes(ref_params)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_from_jax_keeps_moe_and_mla_leaves(arch):
+    """Every leaf of a reduced bf16 MoE model crosses with its value and
+    dtype: the fp32 router and MLA norms, the bf16 expert stacks."""
+    ref_params, _ = RefModel(ref_get_config(arch).reduced()).init(jax.random.PRNGKey(0))
+    ref_leaves, leaves = _leaves(ref_params), _leaves(from_jax(ref_params, device="cpu"))
+    assert sorted(leaves) == sorted(ref_leaves)
+    for path, ref_leaf in ref_leaves.items():
+        assert str(leaves[path].dtype).removeprefix("torch.") == str(ref_leaf.dtype), path
+        np.testing.assert_array_equal(leaves[path].float().numpy(),
+                                      np.asarray(ref_leaf, np.float32), err_msg=path)
+    assert leaves["blocks/ffn/router"].dtype == torch.float32
+    assert leaves["blocks/ffn/w_in"].dtype == torch.bfloat16
+    assert ("blocks/attn/kv_norm" in leaves) == get_config(arch).use_mla
+    assert "dense_blocks/ffn/w_up" in leaves
+
+
 @pytest.mark.parametrize("arch", DENSE_ARCHS + PORTED_ARCHS)
 def test_init_tree_matches_reference(arch):
     """Same paths, shapes, dtypes and specs as the reference ``init``."""
@@ -86,16 +107,26 @@ def test_init_is_seeded():
         assert torch.equal(leaf, _leaves(b)[path]), path
 
 
-@pytest.mark.parametrize("arch", [a for a in OTHER_ARCHS if a not in PORTED_ARCHS])
+@pytest.mark.parametrize("arch", UNPORTED_PARTS)
 def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_config(arch).reduced())
+    """The audio and VLM families raise at ``Model``; the MoE family builds,
+    and its 2D expert parallelism (which needs a mesh) raises."""
+    cfg = get_config(arch).reduced()
+    if cfg.family != "moe":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Model(cfg)
+        return
+    params, _ = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    x = torch.zeros(1, 4, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 16"):
+        apply_moe(layer_slices(params["blocks"])[0]["ffn"], x, cfg, impl="2d")
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_full_width_tree_matches_reference(arch):
-    """The SSM and hybrid families at full width, on the meta device: the
-    reference's parameter paths and shapes, and its parameter count."""
+    """The SSM, hybrid and MoE families at full width (deepseek-v2-236b's
+    236 B and kimi-k2's 1.0 T parameters included), on the meta device: the
+    reference's parameter paths, shapes and dtypes, and its parameter count."""
     ref_model = RefModel(ref_get_config(arch))
     ref_params, _ = ref_model.init(abstract=True)
     params, _ = Model(get_config(arch)).init(device="meta")

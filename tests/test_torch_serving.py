@@ -1,6 +1,7 @@
 """The port's serving engine against the reference's on the same converted
 fp32 parameters, for a reduced model of each ported family (dense qwen2.5-3b,
-SSM mamba2-130m, hybrid recurrentgemma-9b): identical greedy tokens,
+SSM mamba2-130m, hybrid recurrentgemma-9b, MoE deepseek-v2-236b with MLA and
+kimi-k2-1t-a32b with GQA): identical greedy tokens,
 identical node per request, and an identical metrics dict (the simulated
 clock, NSA scoring and FLOP charge are the same code and the same parameter
 count). Mirrors ``tests/test_system.py``'s serving checks."""
@@ -29,7 +30,11 @@ def _requests(cls):
             + [cls(10 + i, np.arange(5, 10, dtype=np.int32), 4) for i in range(3)])
 
 
-@pytest.fixture(scope="module", params=["qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b"])
+ARCHS = ["qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b", "deepseek-v2-236b",
+         "kimi-k2-1t-a32b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
 def served(request):
     ref_cfg = dataclasses.replace(ref_get_config(request.param).reduced(), dtype="float32")
     cfg = dataclasses.replace(get_config(request.param).reduced(), dtype="float32")
@@ -59,7 +64,7 @@ def test_same_metrics(served):
     assert metrics["tokens_per_s"] > 0
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_launcher_serves_on_cpu(capsys, arch):
     m = serve.main(["--arch", arch, "--device", "cpu", "--requests", "2", "--prompt-len", "3",
                     "--new-tokens", "2", "--max-batch", "1"])

@@ -1,8 +1,8 @@
 """The port's training path against the reference, on reduced configs in
 fp32 with the reference's parameters (JAX ``init``, converted).
 
-- ``loss_fn`` gradients of the dense, SSM and hybrid families, with and
-  without remat, against ``jax.value_and_grad`` of the reference's
+- ``loss_fn`` gradients of the dense, SSM, hybrid and MoE (deepseek-v2
+  with MLA, kimi-k2 with GQA) families, with and without remat, against ``jax.value_and_grad`` of the reference's
   ``loss_fn``; once on the plain path and once through the kernels'
   ``torch.autograd.Function``s, whose launch is swapped for the plain version
   (the CPU has no kernel).
@@ -61,7 +61,8 @@ except ModuleNotFoundError:
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-4
 T = 16
-ARCHS = ["qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b"]
+ARCHS = ["qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b", "deepseek-v2-236b",
+         "kimi-k2-1t-a32b"]
 
 
 def _leaves(tree, path=""):
@@ -156,7 +157,9 @@ def test_loss_grads_through_kernel_functions_match_reference(reference_grads, mo
     _check_grads(loss, grads, want_loss, want)
     per_forward = {"qwen2.5-3b": {"flash_attention": 2},
                    "mamba2-130m": {"ssd_scan": 2},
-                   "recurrentgemma-9b": {"rglru_scan": 1, "flash_attention": 1}}[arch]
+                   "recurrentgemma-9b": {"rglru_scan": 1, "flash_attention": 1},
+                   "deepseek-v2-236b": {"flash_attention": 2},
+                   "kimi-k2-1t-a32b": {"flash_attention": 2}}[arch]
     assert counts == {k: per_forward.get(k, 0) * (2 if remat else 1) for k in counts}
 
 
