@@ -10,11 +10,18 @@ NSA scheduler, then trained a few steps (AdamW, remat, gradients through the
 kernels' autograd Functions). Then the paper's own model, MobileNetV2, is
 partitioned, verified and served on the card through the port's copy of the
 AMP4EC control plane (``DistributedInference``); it reaches none of the
-repo's kernels (its convolutions are cuDNN's). Last, deepseek-v2-236b (MoE
+repo's kernels (its convolutions are cuDNN's). Then deepseek-v2-236b (MoE
 with multi-head latent attention; d_model 5120, 128 heads, 160 routed
 experts top-6 and 2 shared, bf16) at full width cut to 4 layers (one dense
 MLA block, three MLA-MoE blocks: 13.3 B parameters) is prefilled through
-the flash kernel at D = 192, Dv = 128 and served. The script builds every
+the flash kernel at D = 192, Dv = 128 and served. Then the two
+cross-attention families: whisper-medium (audio; 24 encoder and 24 decoder
+layers, d_model 1024, 16 heads x 64, full depth) is prefilled over 1500
+frames, its encoder through the flash kernel's non-causal mask, and served
+(each request group's cross cache runs the encoder); llama-3.2-vision-90b
+(VLM; d_model 8192, 64/8 heads x 128, d_ff 28672, a gated cross layer over
+1601 image tokens every 5th layer) at full width cut to 10 layers (10.66 B
+parameters) is prefilled and served. The script builds every
 kernel from the sources in the checkout, holds each against its plain
 PyTorch version on the card, times it (and its backward, the plain version's VJP) beside its bound,
 its plain version and the closest PyTorch library call, and checks that each
@@ -29,10 +36,13 @@ Phases (any failure exits non-zero):
      RG-LRU scan also with long memory (a in [0.99, 1) and a = 1), against
      an fp64 loop too
      and DeepSeek-V2's MLA prefill (1, 128, 4096, D 192 / Dv 128, scale
-     1/sqrt(192)) with the reduced MLA's D 48 / Dv 32 in fp32
+     1/sqrt(192)) with the reduced MLA's D 48 / Dv 32 in fp32; the Whisper
+     encoder's non-causal (4, 16, 1500, 64) in bf16 and fp32 and the VLM's
+     causal (1, 64/8, 4096, 128)
   3. timing at the main-path shapes (CUDA events), TFLOP/s and share of the
-     bound of each kernel; flash also at the qwen prefill's own call and at
-     the MLA prefill's (with the SDPA backends that take Dv != D); the
+     bound of each kernel; flash also at the qwen prefill's own call, at
+     the MLA prefill's (with the SDPA backends that take Dv != D) and at
+     the Whisper encoder's, the Whisper decoder's and the VLM's calls; the
      RG-LRU scan in fp32 and bf16 beside a same-bytes torch.add pass
   4-6. qwen2.5-3b: prefill (launches, finite logits, profile with its count
      of copy kernels), fp32
@@ -40,9 +50,11 @@ Phases (any failure exits non-zero):
   7-9. mamba2-130m: the same three
   10-12. recurrentgemma-9b: the same three (the fp32 check at depth 5)
   13. loss gradients on the card (through the kernels) against the CPU, for
-      reduced qwen2.5-3b, mamba2-130m, recurrentgemma-9b, deepseek-v2-236b
-      and kimi-k2-1t-a32b in fp32, remat off and on: every leaf, within 1e-4
-      (the MoE routing on both devices compared, any top-k flip reported)
+      reduced qwen2.5-3b, mamba2-130m, recurrentgemma-9b, deepseek-v2-236b,
+      kimi-k2-1t-a32b, whisper-medium and llama-3.2-vision-90b (4 layers,
+      cross-layer gate 0.5) in fp32, remat off and on: every leaf, within
+      1e-4 (the MoE routing on both devices compared, any top-k flip
+      reported)
   14. full-width qwen2.5-3b training: 3 steps at (2, 512 + 1), bf16 params,
       fp32 moments, remat (launches per step, every leaf moved, peak
       memory), then one step under the profiler
@@ -63,7 +75,16 @@ Phases (any failure exits non-zero):
       requests and a profiled decode step at batch 4 (every decode step
       reads all 160 experts of each MoE layer, as the reference's dense
       capacity buffer does)
-  21. JSON lines of the training, MobileNetV2 and kernel results, the card
+  21-23. whisper-medium at full width and depth: prefill (4, 448) over
+      frames (4, 1500, 1024) (24 non-causal encoder and 24 causal decoder
+      flash launches, all on wgmma), fp32 prefill-vs-decode (bound 2e-3),
+      serving 8 requests (24 encoder launches per request group)
+  24-26. llama-3.2-vision-90b, full width cut to 10 layers (two
+      super-blocks of 4 self-attention layers and 1 gated cross layer; the
+      gate set to 0.5, since its initial 0 hides the cross layers): prefill
+      (1, 4096) over images (1, 1601, 8192) (8 flash launches; cross
+      attention is plain PyTorch), fp32 check at 5 layers, serving
+  27. JSON lines of the training, MobileNetV2 and kernel results, the card
       line, then the device line last
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -91,7 +112,7 @@ from repro_torch.checkpoint import restore_checkpoint, save_checkpoint  # noqa: 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (DistributedInference, EdgeCluster,  # noqa: E402
                               ModelPartitioner, make_paper_cluster, run_monolithic)
-from repro_torch.data import DataConfig, batches_for_model  # noqa: E402
+from repro_torch.data import DataConfig, batches_for_model, frontend_stub  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
@@ -122,6 +143,14 @@ MLA_MAIN = dict(b=1, hq=128, hkv=128, s=4096, d=192, dv=128)
 # the reduced MLA (d_model 256, 4 heads, nope 32 + rope 16, v 32) at phase
 # 13's (2, 128) fp32 forward: the CUDA-core variant
 MLA_REDUCED = dict(b=2, hq=4, hkv=4, s=128, d=48, dv=32)
+# whisper-medium: the encoder's non-causal attention over 1500 frames and
+# the decoder's causal attention at its 448-token context, batch 4
+WHISPER_ENC = dict(b=4, hq=16, hkv=16, s=1500, d=64, dv=64)
+WHISPER_DEC = dict(b=4, hq=16, hkv=16, s=448, d=64, dv=64)
+# llama-3.2-vision-90b self attention at its (1, 4096) prefill
+VLM_DEC = dict(b=1, hq=64, hkv=8, s=4096, d=128, dv=128)
+#: the VLM's cross-layer gate on the card (init 0: tanh(0) = 0 hides the layers)
+GATE = 0.5
 MNV2_INPUT = (32, 224, 224, 3)   # the paper's batch of 32 at MobileNetV2's IMAGE_SIZE, NHWC
 #: the kernels' wrappers, whose ``launches`` count their kernel launches
 KERNELS = {"flash_attention": fa.flash_attention, "ssd_scan": ss.ssd_scan,
@@ -203,16 +232,24 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def device_ms(fn, n: int = 10) -> float:
     """Device time per call of ``fn``: the sum of its kernels' time under
-    torch.profiler, without the host's gaps between launches."""
+    torch.profiler, without the host's gaps between launches. A profile
+    that records no device time (it happens now and then on the card) is
+    taken again; after three empty ones the CUDA-event time stands in, and
+    the log says so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / n / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / n / 1e3
+    log("    the profiler recorded no device time in 3 tries: CUDA-event time instead")
+    return cuda_ms(fn, iters=n)
 
 
 def check(kernel: str, name: str, got, want, tol: float) -> dict:
@@ -311,6 +348,28 @@ def flash_vs_plain():
         results.append(dict(check("flash_attention", f"{name} causal scale 1/sqrt({shape['d']}) "
                                   f"on (B,S,H,D) views [{variant}]", [got], [want], tol),
                             variant=variant))
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    # the cross-attention families' self attention, as the model hands it
+    # over: the Whisper encoder's non-causal mask at S = 1500 (a multiple of
+    # neither the 128-row q tile nor the 64-key tile) and the VLM's 64 q heads
+    # over 8 kv heads
+    for i, (name, shape, dtype, causal, tol, want_variant) in enumerate((
+            ("Whisper encoder (4,16,16,1500,64) bf16 non-causal", WHISPER_ENC, torch.bfloat16,
+             False, 2e-2, "wgmma"),
+            ("Whisper encoder (4,16,16,1500,64) fp32 non-causal", WHISPER_ENC, torch.float32,
+             False, 2e-5, "cuda_core"),
+            ("VLM decoder (1,64,8,4096,128) bf16 causal", VLM_DEC, torch.bfloat16, True, 2e-2,
+             "wgmma"))):
+        q, k, v = qkv_heads_last(SEED + 70 + i, **shape, dtype=dtype)
+        variant = fa.route(q, k, v)
+        assert variant == want_variant, (name, variant)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = ref.attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        results.append(dict(check("flash_attention", f"{name} on (B,S,H,D) views [{variant}]",
+                                  [got], [want], tol), variant=variant))
         del q, k, v, got, want
         torch.cuda.empty_cache()
     return results
@@ -535,11 +594,11 @@ def flash_timing(device_line: str):
                              bound_by=pf_by, device_ms=pf_dev, backward_ms=pf_bwd),
                 hybrid=dict(ms=hy_ms, plain_ms=hy_plain, library_ms=hy_lib, bound_ms=hy_bound,
                             bound_by=hy_by, device_ms=hy_dev, backward_ms=hy_bwd),
-                mla=mla_timing(device_line))
+                mla=mla_timing(device_line), **cross_family_timing(device_line))
 
 
-def sdpa_backends(q, k, v, scale: float, iters: int) -> dict:
-    """Each SDPA backend on these inputs (causal, the given scale): its ms by
+def sdpa_backends(q, k, v, scale: float, iters: int, causal: bool = True) -> dict:
+    """Each SDPA backend on these inputs (the mask and scale given): its ms by
     CUDA events, or the reason it gave for refusing them."""
     import warnings
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -550,50 +609,77 @@ def sdpa_backends(q, k, v, scale: float, iters: int) -> dict:
         with sdpa_kernel(backend), warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             try:
-                sdpa(q, k, v, is_causal=True, scale=scale)
+                sdpa(q, k, v, is_causal=causal, scale=scale)
             except RuntimeError as e:   # "No available kernel": the warnings say why
                 msgs = [str(w.message).split(" (Triggered internally")[0] for w in caught]
                 why = [m for m in msgs if "not used because" not in m
                        and "runtime disabled" not in m]
                 out[backend.name] = f"refused: {'; '.join(why) or str(e).splitlines()[0]}"
                 continue
-            out[backend.name] = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale),
+            out[backend.name] = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal, scale=scale),
                                         iters=iters)
     return out
 
 
-def mla_timing(device_line: str) -> dict:
-    """The deepseek-v2 MLA prefill's call: (1, 128, 4096), D 192, Dv 128,
-    bf16, causal, scale 1/sqrt(192), on (B, S, H, D) views."""
-    m = MLA_MAIN
-    q, k, v = qkv_heads_last(SEED + 3, **m, dtype=torch.bfloat16)
-    scale = 1.0 / math.sqrt(m["d"])
-    call = lambda: fa.flash_attention(q, k, v, causal=True, scale=scale)  # noqa: E731
+def views_timing(label: str, shape: dict, causal: bool, seed: int, device_line: str,
+                 plain_iters: int, scale: float | None = None) -> dict:
+    """One model call of the kernel, bf16 on (B, S, H, D) views: its ms by
+    CUDA events and on the device, the plain version's ms, SDPA's ms on each
+    backend and as a user calls it (k and v repeated to the q heads where
+    Hkv < Hq), and the bound."""
+    q, k, v = qkv_heads_last(seed, **shape, dtype=torch.bfloat16)
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape["d"])
+    call = lambda: fa.flash_attention(q, k, v, causal=causal, scale=scale)  # noqa: E731
     kernel_ms = cuda_ms(call, iters=20)
     dev_ms = device_ms(call)
-    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True, scale=scale), iters=2,
-                       warmup=1)
-    backends = sdpa_backends(q, k, v, scale, iters=5)
+    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal, scale=scale),
+                       iters=plain_iters, warmup=1)
+    kr, vr = ref.repeat_kv(k, shape["hq"]), ref.repeat_kv(v, shape["hq"])
+    backends = sdpa_backends(q, kr, vr, scale, iters=5, causal=causal)
     accepted = [b for b, t in backends.items() if not isinstance(t, str)]
     # the library call: SDPA as a user calls it, on whichever backend it picks
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=scale), iters=5) if accepted else None
-    pairs = m["s"] * (m["s"] + 1) / 2
-    flops = 2.0 * m["b"] * m["hq"] * pairs * (m["d"] + m["dv"])
-    nb = nbytes(q, k, v) + v.numel() * 2
+        q, kr, vr, is_causal=causal, scale=scale), iters=5) if accepted else None
+    # key-query pairs the mask leaves, each 2 D FLOPs for QK^T and 2 Dv for PV;
+    # q, k, v read once and the (B, Hq, S, Dv) output written once
+    s_ = shape["s"]
+    pairs = s_ * (s_ + 1) / 2 if causal else float(s_ * s_)
+    flops = 2.0 * shape["b"] * shape["hq"] * pairs * (shape["d"] + shape["dv"])
+    nb = nbytes(q, k, v) + shape["b"] * shape["hq"] * s_ * shape["dv"] * 2
     bound_ms, bound_by = bound(flops, nb, PEAK_BF16_FLOPS)
-    log(f"  [{device_line}] flash_attention bf16 (1,128,4096,192/128) causal scale "
-        f"1/sqrt(192) on (B,S,H,D) views (the deepseek-v2 MLA prefill's call), variant "
+    log(f"  [{device_line}] flash_attention bf16 {label} on (B,S,H,D) views, variant "
         f"{fa.route(q, k, v)}: kernel {kernel_ms:.4f} ms (device {dev_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, SDPA {'none' if library_ms is None else f'{library_ms:.4f} ms'}"
         f", bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, {nb / 1e6:.2f} MB); "
         f"kernel at {flops / kernel_ms / 1e9:.1f} TFLOP/s (device: "
-        f"{flops / dev_ms / 1e9:.1f}) = {100 * bound_ms / kernel_ms:.2f}% of the bf16 roofline")
-    log(f"    SDPA backends at Dv = 128 != D = 192: {json.dumps(backends)}")
-    del q, k, v
+        f"{flops / dev_ms / 1e9:.1f}) = {100 * bound_ms / kernel_ms:.2f}% of the bf16 roofline"
+        + ("" if library_ms is None else f", kernel / SDPA = {kernel_ms / library_ms:.3f}"))
+    log(f"    SDPA backends: {json.dumps(backends)}")
+    del q, k, v, kr, vr
     torch.cuda.empty_cache()
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, device_ms=dev_ms, sdpa_backends=backends)
+
+
+def mla_timing(device_line: str) -> dict:
+    """The deepseek-v2 MLA prefill's call: (1, 128, 4096), D 192, Dv 128,
+    bf16, causal, scale 1/sqrt(192); SDPA's flash backend refuses Dv != D."""
+    return views_timing("(1,128,4096,192/128) causal scale 1/sqrt(192) (the deepseek-v2 MLA "
+                        "prefill's call)", MLA_MAIN, True, SEED + 3, device_line, plain_iters=2,
+                        scale=1.0 / math.sqrt(MLA_MAIN["d"]))
+
+
+def cross_family_timing(device_line: str) -> dict:
+    """The audio and VLM families' calls: the Whisper encoder's non-causal
+    attention over 1500 frames, the Whisper decoder's causal prefill at its
+    448-token context, and the VLM's 64 q heads over 8 kv heads."""
+    return dict(
+        whisper_encoder=views_timing("(4,16,16,1500,64) non-causal (the Whisper encoder's call)",
+                                     WHISPER_ENC, False, SEED + 4, device_line, plain_iters=3),
+        whisper_decoder=views_timing("(4,16,16,448,64) causal (the Whisper decoder's prefill)",
+                                     WHISPER_DEC, True, SEED + 5, device_line, plain_iters=10),
+        vlm_decoder=views_timing("(1,64,8,4096,128) causal (the VLM's self-attention prefill)",
+                                 VLM_DEC, True, SEED + 6, device_line, plain_iters=2))
 
 
 def ssd_timing(device_line: str):
@@ -662,19 +748,21 @@ def rglru_timing(device_line: str):
 
 
 def phase_prefill(model, params, batch: int, seq: int, device_line: str) -> dict:
-    """Two prefills from zeroed counts; returns the launches of both, checked
-    against one launch of each kernel per layer that runs it."""
+    """Two prefills from zeroed counts (the audio and VLM families over their
+    frames or image tokens); returns the launches of both, checked against
+    one launch of each kernel per layer that runs it."""
     cfg = model.cfg
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g, device="cuda",
                            dtype=torch.int32)
+    inputs = {"tokens": tokens, **memory_inputs(cfg, batch)}
     reset_counts()
     times = []
     with torch.no_grad():
         for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, _, cache = model.forward(params, {"tokens": tokens}, mode="prefill")
+            logits, _, cache = model.forward(params, inputs, mode="prefill")
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
     launches = read_counts()
@@ -694,20 +782,59 @@ def phase_prefill(model, params, batch: int, seq: int, device_line: str) -> dict
         f"{variants}; cache {shapes}")
     log(f"  [{device_line}] wall {times[0]:.4f} s first call, {times[1]:.4f} s second")
     with torch.no_grad():
-        profile_call(lambda: model.forward(params, {"tokens": tokens}, mode="prefill"),
+        profile_call(lambda: model.forward(params, inputs, mode="prefill"),
                      f"one prefill ({batch}, {seq})", device_line)
     return dict(launches=launches, variants=variants, wall_s=times)
 
 
 def expected_launches(model) -> dict:
-    """One launch per layer whose mixer runs the kernel."""
+    """One launch per layer whose mixer runs the kernel: every self-attention
+    layer (the Whisper encoder's too), none of the cross-attention layers."""
     cfg = model.cfg
-    kinds = ([cfg.family] * cfg.num_layers if cfg.family != "hybrid"
-             else [k for _ in range(model._n_super) for k in model._pattern]
-             + [model._tail_kind(t) for t in range(model._n_tail)])
+    if cfg.family == "hybrid":
+        kinds = ([k for _ in range(model._n_super) for k in model._pattern]
+                 + [model._tail_kind(t) for t in range(model._n_tail)])
+    elif cfg.family == "audio":
+        kinds = ["attn"] * (cfg.encoder_layers + cfg.num_layers)
+    elif cfg.family == "vlm":
+        kinds = ["attn"] * (model._n_super * (cfg.cross_attn_every - 1))
+    else:
+        kinds = [cfg.family] * cfg.num_layers
     per_kind = {"dense": "flash_attention", "moe": "flash_attention", "attn": "flash_attention",
                 "ssm": "ssd_scan", "rec": "rglru_scan"}
     return {name: sum(per_kind[k] == name for k in kinds) for name in KERNELS}
+
+
+def expected_step_launches(model, remat: bool) -> dict:
+    """Launches of one loss gradient: each layer's forward, and under remat
+    its recompute too, but for the Whisper encoder, which the reference's
+    remat does not cover."""
+    per_forward = expected_launches(model)
+    if not remat:
+        return per_forward
+    once = model.cfg.encoder_layers if model.cfg.family == "audio" else 0
+    return {k: 2 * n - (once if k == "flash_attention" else 0) for k, n in per_forward.items()}
+
+
+def memory_inputs(cfg, batch: int) -> dict:
+    """The audio family's frames or the VLM's image tokens, (batch, M,
+    d_model) standard normal in the model's dtype on the card (the
+    frontends are stubs, as in the reference); {} for the other families."""
+    if cfg.family not in ("audio", "vlm"):
+        return {}
+    m = cfg.num_frames if cfg.family == "audio" else cfg.num_image_tokens
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    arr = torch.randn((batch, m, cfg.d_model), generator=g, device="cuda").to(cfg.torch_dtype)
+    return {"frames" if cfg.family == "audio" else "images": arr}
+
+
+def open_gates(params) -> None:
+    """Every gated cross layer's gate set to GATE, in place (the VLM's init
+    puts 0 there, and tanh(0) = 0 would make every cross layer add nothing)."""
+    with torch.no_grad():
+        for path, leaf in leaves(params).items():
+            if path.endswith("/gate"):
+                leaf.fill_(GATE)
 
 
 def leaves(tree, path="") -> dict:
@@ -721,6 +848,16 @@ def leaves(tree, path="") -> dict:
 def reference_cache_shapes(model, batch: int, seq: int) -> dict:
     """The reference's prefill cache shapes (``repro.models.model.forward``)."""
     cfg = model.cfg
+    if cfg.family == "audio":   # ((k, v), (xk, xv)) stacked over the decoder layers
+        kv = (cfg.num_layers, batch, cfg.num_kv_heads, seq, cfg.head_dim_)
+        xkv = (cfg.num_layers, batch, cfg.num_kv_heads, cfg.num_frames, cfg.head_dim_)
+        return {"/dec/0/0": kv, "/dec/0/1": kv, "/dec/1/0": xkv, "/dec/1/1": xkv}
+    if cfg.family == "vlm":     # {"self{j}": (k, v), "cross": (xk, xv)} per super-block
+        kv = (model._n_super, batch, cfg.num_kv_heads, seq, cfg.head_dim_)
+        xkv = (model._n_super, batch, cfg.num_kv_heads, cfg.num_image_tokens, cfg.head_dim_)
+        out = {f"/super/self{j}/{i}": kv for j in range(cfg.cross_attn_every - 1)
+               for i in range(2)}
+        return dict(out, **{"/super/cross/0": xkv, "/super/cross/1": xkv})
     if cfg.family in ("dense", "moe"):
         fd = cfg.first_dense_layers if cfg.family == "moe" else 0
         if cfg.use_mla:     # (c_kv, k_rope)
@@ -813,21 +950,26 @@ def phase_consistency(cfg) -> float:
     """fp32 train forward (through the kernels) against 16 decode steps; MoE
     at the reference test's capacity factor 16 (tests/test_models.py:84-92),
     since the forward drops tokens at capacity and single-token decode never
-    does."""
+    does. The audio and VLM families decode after ``fill_cross_cache`` from
+    the forward's own frames or image tokens, the VLM's gate at GATE."""
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     if cfg.family == "moe":
         cfg32 = dataclasses.replace(cfg32, capacity_factor=16.0)
     model = Model(cfg32)
     params, _ = model.init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    open_gates(params)
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     tokens = torch.randint(0, cfg.vocab_size, (1, 16), generator=g, device="cuda",
                            dtype=torch.int32)
+    mem = memory_inputs(cfg32, 1)
     v = cfg.vocab_size
     with torch.no_grad():
         reset_counts()
-        fwd, _, _ = model.forward(params, {"tokens": tokens}, mode="train")
+        fwd, _, _ = model.forward(params, {"tokens": tokens, **mem}, mode="train")
         assert read_counts() == expected_launches(model), read_counts()
         cache, _ = model.init_cache(1, 32, device="cuda")
+        for m in mem.values():
+            cache = model.fill_cross_cache(params, cache, m)
         err = 0.0
         for t in range(16):
             logits, cache = model.decode_step(params, tokens[:, t], cache)
@@ -843,27 +985,51 @@ def phase_consistency(cfg) -> float:
     return err
 
 
-def phase_serving(cfg, params, device_line: str):
+def phase_serving(cfg, params, device_line: str) -> dict:
+    """8 requests through the engine in two groups of 4; the kernels launch
+    only where a group's cross cache runs the Whisper encoder (one launch per
+    encoder layer and group). Then one decode step, timed and profiled."""
     engine = ServingEngine(cfg, params, make_paper_cluster(), max_batch=4, device="cuda")
     reqs = [Request(i, np.arange(3, 19, dtype=np.int32), 8) for i in range(8)]
+    groups = 2
+    expected = {k: (groups * cfg.encoder_layers if k == "flash_attention"
+                    and cfg.family == "audio" else 0) for k in KERNELS}
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     m = engine.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches, variants = read_counts(), read_variants()
     assert m["num_requests"] == 8
     assert all(r.output is not None and r.output.shape == (8,) for r in reqs)
     assert len(m["requests_per_node"]) >= 2, m["requests_per_node"]
     assert m["tokens_per_s"] > 0
+    assert launches == expected, (launches, expected)
+    assert variants["flash_attention"]["wgmma"] == launches["flash_attention"], variants
     new_tokens = sum(r.max_new_tokens for r in reqs)
     log(f"  [{device_line}] served 8 requests (prompt 16, 8 new tokens, max_batch 4): "
         f"wall {wall:.4f} s, {new_tokens / wall:.2f} generated tokens/s; kernel launches "
-        f"{read_counts()} (the engine feeds prompts through decode_step)")
+        f"{launches} (the engine feeds prompts through decode_step"
+        + ("; each group's cross cache runs the encoder" if cfg.family == "audio" else "")
+        + f"); max allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log("  simulated edge-cluster metrics (cost model, not device time): "
         + json.dumps({k: m[k] for k in m if k != "scheduler"}))
+    stub_s = None
+    if cfg.family in ("audio", "vlm"):
+        # the engine draws each group's memory on the host, as the reference's does
+        m_len = cfg.num_frames if cfg.family == "audio" else cfg.num_image_tokens
+        t0 = time.perf_counter()
+        frontend_stub(cfg.family, 4, m_len, cfg.d_model)
+        stub_s = time.perf_counter() - t0
+        log(f"  the engine's frontend stub for one group of 4 ({4 * m_len * cfg.d_model / 1e6:.1f} M "
+            f"values drawn by numpy on the host): {stub_s:.4f} s")
     # one decode step as the engine runs it: batch 4, cache of P + N + 1 slots
     cache, _ = engine.model.init_cache(4, 25, device="cuda")
+    with torch.no_grad():
+        for mem in memory_inputs(cfg, 4).values():
+            cache = engine.model.fill_cross_cache(params, cache, mem)
     token = torch.zeros(4, dtype=torch.int32, device="cuda")
     with torch.no_grad():
         step_ms = cuda_ms(lambda: engine.model.decode_step(params, token, cache), iters=5,
@@ -872,7 +1038,7 @@ def phase_serving(cfg, params, device_line: str):
             f"5 steps)")
         profile_call(lambda: engine.model.decode_step(params, token, cache),
                      "one decode step (batch 4)", device_line)
-    return wall
+    return dict(wall_s=wall, launches=launches, decode_step_ms=step_ms, frontend_stub_s=stub_s)
 
 
 def drive(arch: str, first: int, batch: int, seq: int, device_line: str,
@@ -887,6 +1053,7 @@ def drive(arch: str, first: int, batch: int, seq: int, device_line: str,
     torch.cuda.reset_peak_memory_stats()
     model = Model(cfg)
     params, _ = model.init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    open_gates(params)
     log(f"  {model.param_count(params) / 1e9:.3f} B parameters, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
         f"({torch.cuda.max_memory_allocated() / 1e9:.2f} GB at most during init)")
@@ -898,17 +1065,19 @@ def drive(arch: str, first: int, batch: int, seq: int, device_line: str,
     torch.cuda.reset_peak_memory_stats()
     phase_consistency(dataclasses.replace(cfg, num_layers=consistency_layers or cfg.num_layers))
     log(f"phase {first + 2}: {arch} serving")
-    phase_serving(cfg, params, device_line)
+    out["serving"] = phase_serving(cfg, params, device_line)
     del model, params
     torch.cuda.empty_cache()
     return out
 
 
-def loss_grads(model, params, tokens, remat: bool):
-    """(loss, {path: gradient}) of ``model.loss_fn``; a leaf that the loss
+def loss_grads(model, params, tokens, remat: bool, mem=None):
+    """(loss, {path: gradient}) of ``model.loss_fn`` (over the audio or VLM
+    memory ``mem`` too, moved to the tokens' device); a leaf that the loss
     does not reach raises."""
     inputs = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss, _ = model.loss_fn(inputs, {"tokens": tokens}, remat=remat)
+    mem = {k: t.to(tokens.device) for k, t in (mem or {}).items()}
+    loss, _ = model.loss_fn(inputs, {"tokens": tokens, **mem}, remat=remat)
     grads = torch.autograd.grad(loss, tree_leaves(inputs))
     return loss.detach(), dict(zip(leaves(params), grads))
 
@@ -952,30 +1121,35 @@ def phase_grads() -> dict:
     autograd Functions, against the CPU's plain path on the same fp32
     parameters and tokens; every leaf finite and within 1e-4. For the MoE
     archs the router's top-k on both devices is compared first (the scatter
-    and gather backward then run on the card too)."""
+    and gather backward then run on the card too). Whisper's encoder runs
+    flash's backward through the non-causal mask; the VLM runs at 4 layers
+    (two super-blocks) with its gate at GATE."""
     out = {}
     for arch in ("qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b", "deepseek-v2-236b",
-                 "kimi-k2-1t-a32b"):
-        model = Model(dataclasses.replace(get_config(arch).reduced(), dtype="float32"))
+                 "kimi-k2-1t-a32b", "whisper-medium", "llama-3.2-vision-90b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        if cfg.family == "vlm":
+            cfg = dataclasses.replace(cfg, num_layers=4)
+        model = Model(cfg)
         params, _ = model.init(torch.Generator().manual_seed(SEED), device="cpu")
+        open_gates(params)
         rng = np.random.default_rng(SEED)
         tokens = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (2, 129))
                                   .astype(np.int32))
+        mem = {k: t.cpu() for k, t in memory_inputs(cfg, 2).items()}
         if model.cfg.family == "moe":
             flips = routing_flips(model, params, tokens)
             log(f"  {arch}: router top-k on the card vs the CPU over {2 * 128} tokens per MoE "
                 f"layer: {flips} tokens differ")
         worst = 0.0
         for remat in (False, True):
-            want_loss, want = loss_grads(model, params, tokens, remat)
+            want_loss, want = loss_grads(model, params, tokens, remat, mem)
             reset_counts()
             got_loss, got = loss_grads(model, tree_map(lambda p: p.cuda(), params),
-                                       tokens.cuda(), remat)
+                                       tokens.cuda(), remat, mem)
             torch.cuda.synchronize()
             launches = read_counts()
-            per_forward = expected_launches(model)
-            assert launches == {k: n * (2 if remat else 1) for k, n in per_forward.items()}, \
-                (arch, remat, launches)
+            assert launches == expected_step_launches(model, remat), (arch, remat, launches)
             assert abs(float(got_loss) - float(want_loss)) < 1e-4, (arch, remat)
             assert got.keys() == want.keys()
             for path, g in got.items():
@@ -1006,7 +1180,7 @@ def phase_train(cfg, batch: int, seq: int, steps: int, device_line: str, *,
     step_fn = make_train_step(model, opt, remat=True)
     data = batches_for_model(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                              global_batch=batch, seed=SEED))
-    expected = {k: 2 * n for k, n in expected_launches(model).items()}
+    expected = expected_step_launches(model, remat=True)
     log(f"  {model.param_count(params) / 1e9:.3f} B parameters in {cfg.dtype}, fp32 moments: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the first step")
     before = ({p: t.to("cpu", copy=True) for p, t in leaves(params).items()}
@@ -1209,8 +1383,21 @@ def main() -> int:
     # fp32 check keeps the dense block and one MoE block (21.4 GB in fp32)
     paths["deepseek-v2-236b (4 layers) prefill (1, 4096)"] = drive(
         "deepseek-v2-236b", 18, 1, 4096, device_line, consistency_layers=2, num_layers=4)
+    torch.cuda.empty_cache()
 
-    log("phase 21: results")
+    # whisper-medium (0.845 B parameters) fits at full depth, its fp32 check
+    # too; 448 tokens is Whisper's decoder context
+    whisper = drive("whisper-medium", 21, 4, 448, device_line)
+    paths["whisper-medium prefill (4, 448) over (4, 1500) frames"] = whisper
+    paths["whisper-medium serving 8 x (16 + 8), max batch 4"] = whisper["serving"]
+    torch.cuda.empty_cache()
+    # 87.7 B parameters (175 GB in bf16) do not fit on the card: full width,
+    # depth cut from 100 to 10 layers (two super-blocks, 10.66 B parameters,
+    # 21.3 GB); the fp32 check keeps one super-block (5 layers, 25.5 GB)
+    paths["llama-3.2-vision-90b (10 layers) prefill (1, 4096) over 1601 image tokens"] = drive(
+        "llama-3.2-vision-90b", 24, 1, 4096, device_line, consistency_layers=5, num_layers=10)
+
+    log("phase 27: results")
     kernels = []
     for name, source, replaces in (
             ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:30"),

@@ -1,14 +1,16 @@
-"""Primitive layers: norms, rotary embeddings, MLP, GQA attention and
+"""Primitive layers: norms, rotary embeddings, MLP, GQA self attention,
+cross attention (the Whisper decoder's and the VLM's gated layers) and
 embeddings, shared by the families of the unified model.
 
 Plain functions on tensors: each ``init_*`` builds params via a ParamBuilder
 (recording logical axes as metadata); each ``apply`` is a plain function.
 The reference's sharding constraints are dropped: the port runs on one
-device. Cross attention comes with the audio / VLM slice.
+device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -242,6 +244,65 @@ def apply_attention_decode(
     if cache_scales is not None:
         return out, new_k, new_v, new_scales
     return out, new_k, new_v
+
+
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder / llama-vision)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(b: ParamBuilder, name: str, cfg: ModelConfig, gated: bool = False):
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    sub = b.sub(name)
+    sub.param("w_q", (cfg.d_model, nh * hd), (None, "heads"))
+    sub.param("w_k", (cfg.d_model, nkv * hd), (None, "kv_heads"))
+    sub.param("w_v", (cfg.d_model, nkv * hd), (None, "kv_heads"))
+    sub.param("w_o", (nh * hd, cfg.d_model), ("heads", None))
+    if gated:
+        sub.param("gate", (1,), (None,), init="zeros", dtype=torch.float32)
+
+
+def _promoted_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as ``jnp`` promotes (fp32
+    memory against bf16 weights computes in fp32)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def cross_kv(p, memory: torch.Tensor, cfg: ModelConfig):
+    """Precompute cross-attention K/V from encoder/vision memory (B, M, D)."""
+    B, M, _ = memory.shape
+    nkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    k = _promoted_matmul(memory, p["w_k"]).reshape(B, M, nkv, hd).transpose(1, 2)
+    v = _promoted_matmul(memory, p["w_v"]).reshape(B, M, nkv, hd).transpose(1, 2)
+    return k, v
+
+
+def apply_cross_attention(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, D) queries; k/v: (B, Hkv, M, hd) precomputed memory KV.
+
+    S = 1 goes through ``ops.decode_attention`` with every memory slot
+    valid; S > 1 is plain attention with fp32 scores and softmax, as in the
+    reference (no kernel: the queries and keys differ in length)."""
+    B, S, _ = x.shape
+    nh, hd = cfg.num_heads, cfg.head_dim_
+    q = (x @ p["w_q"]).reshape(B, S, nh, hd).transpose(1, 2)
+    M = k.shape[2]
+    if S == 1:
+        mask = torch.ones((B, M), dtype=torch.bool, device=x.device)
+        o = ops.decode_attention(q, k, v, mask)
+    else:
+        rep = nh // k.shape[1]
+        kf = torch.repeat_interleave(k.float(), rep, dim=1)
+        vf = torch.repeat_interleave(v.float(), rep, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / math.sqrt(hd)
+        pw = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bhkd->bhqd", pw, vf).to(x.dtype)
+    o = o.transpose(1, 2).reshape(B, S, nh * hd)
+    out = o @ p["w_o"]
+    if "gate" in p:
+        out = out * torch.tanh(p["gate"]).to(out.dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------

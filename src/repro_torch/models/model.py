@@ -1,26 +1,30 @@
-"""The unified model: the dense, MoE (with MLA: deepseek-v2), SSM (mamba2)
-and hybrid (recurrentgemma) families.
+"""The unified model: the dense, MoE (with MLA: deepseek-v2), SSM (mamba2),
+hybrid (recurrentgemma), audio (whisper: encoder-decoder) and VLM
+(llama-3.2-vision: gated cross-attention layers) families.
 
 One ``Model`` object per ``ModelConfig`` exposes, as the reference does:
 
   init(generator, device)            -> (params, specs)
   forward(params, batch, mode, remat) -> (logits, aux_loss, cache_or_None)
   loss_fn(params, batch, remat)      -> (loss, nll)
-  init_cache(batch, cache_len, device) -> (cache, cache_specs)
+  init_cache(batch, cache_len, device, memory_len) -> (cache, cache_specs)
+  fill_cross_cache(params, cache, memory) -> cache   (audio and VLM)
   decode_step(params, token, cache)  -> (logits, cache)
 
 Parameters keep the reference's tree, with the layers stacked on a leading
 axis under ``"blocks"`` (the MoE family's leading dense layers under
-``"dense_blocks"``; the hybrid family: repeating super-blocks under
-``"super"`` and the leftover layers as ``"tail{t}"``); the reference's
-``lax.scan`` over layers is a Python loop over layer slices, and the port
-runs eagerly. ``remat`` recomputes each block in the backward
+``"dense_blocks"``; the audio family's encoder under ``"enc_blocks"``; the
+hybrid and VLM families: repeating super-blocks under ``"super"``, and the
+hybrid's leftover layers as ``"tail{t}"``); the reference's ``lax.scan``
+over layers is a Python loop over layer slices, and the port runs
+eagerly. ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``), the reference's ``remat_policy = "full"``.
 Entry points run on the card unless the caller names another device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -33,11 +37,6 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.utils.params import ParamBuilder, count_params, layer_slices, stack_layers
-
-#: the families still missing here, with the ROADMAP item that ports them
-_UNPORTED = ("audio", "vlm")
-_UNPORTED_ITEM = "ROADMAP Queue A item 14 (audio and VLM families)"
-
 
 def _init_dense_block(b: ParamBuilder, cfg: ModelConfig, use_moe: bool):
     L.init_norm(b, "ln1", cfg.d_model, cfg.norm)
@@ -67,6 +66,33 @@ def _init_hybrid_block(b: ParamBuilder, cfg: ModelConfig, kind: str):
     L.init_mlp(b, "ffn", cfg)
 
 
+def _init_cross_block(b: ParamBuilder, cfg: ModelConfig, gated: bool):
+    L.init_norm(b, "ln1", cfg.d_model, cfg.norm)
+    L.init_cross_attention(b, "xattn", cfg, gated=gated)
+    L.init_norm(b, "ln2", cfg.d_model, cfg.norm)
+    L.init_mlp(b, "ffn", cfg)
+
+
+def _init_audio_dec_block(b: ParamBuilder, cfg: ModelConfig):
+    L.init_norm(b, "ln1", cfg.d_model, cfg.norm)
+    L.init_attention(b, "attn", cfg)
+    L.init_norm(b, "lnx", cfg.d_model, cfg.norm)
+    L.init_cross_attention(b, "xattn", cfg, gated=False)
+    L.init_norm(b, "ln2", cfg.d_model, cfg.norm)
+    L.init_mlp(b, "ffn", cfg)
+
+
+def _sinusoid(length: int, dim: int, device=None) -> torch.Tensor:
+    """The Whisper encoder's fixed positions: sin on even, cos on odd columns."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
 def _stack_init(generator, n: int, fn, dtype, device):
     """Build ``n`` identical blocks and stack along a leading layer axis."""
     outs = []
@@ -91,9 +117,6 @@ def _stack_states(states: list):
 class Model:
     def __init__(self, cfg: ModelConfig):
         cfg.validate()
-        if cfg.family in _UNPORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet; see {_UNPORTED_ITEM}")
         self.cfg = cfg
 
     # -- structure helpers --------------------------------------------------
@@ -104,8 +127,11 @@ class Model:
 
     @property
     def _n_super(self) -> int:
-        if self.cfg.family == "hybrid":
-            return self.cfg.num_layers // len(self._pattern)
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return cfg.num_layers // len(self._pattern)
+        if cfg.family == "vlm":
+            return cfg.num_layers // cfg.cross_attn_every
         return 0
 
     @property
@@ -149,6 +175,28 @@ class Model:
         elif cfg.family == "ssm":
             params["blocks"], specs["blocks"] = _stack_init(
                 generator, cfg.num_layers, lambda bb: _init_ssm_block(bb, cfg), dtype, device)
+        elif cfg.family == "audio":
+            # an encoder block is a dense block (ln1, attn, ln2, ffn)
+            params["enc_blocks"], specs["enc_blocks"] = _stack_init(
+                generator, cfg.encoder_layers,
+                lambda bb: _init_dense_block(bb, cfg, use_moe=False), dtype, device)
+            eb = ParamBuilder(generator, dtype=dtype, device=device)
+            L.init_norm(eb, "enc_final_norm", cfg.d_model, cfg.norm)
+            eb.param("dec_pos", (cfg.max_positions, cfg.d_model), (None, None),
+                     init="embedding")
+            p2, s2 = eb.build()
+            params.update(p2)
+            specs.update(s2)
+            params["blocks"], specs["blocks"] = _stack_init(
+                generator, cfg.num_layers, lambda bb: _init_audio_dec_block(bb, cfg),
+                dtype, device)
+        elif cfg.family == "vlm":
+            def init_vlm_super(bb: ParamBuilder):
+                for j in range(cfg.cross_attn_every - 1):
+                    _init_dense_block(bb.sub(f"self{j}"), cfg, use_moe=False)
+                _init_cross_block(bb.sub("cross"), cfg, gated=True)
+            params["super"], specs["super"] = _stack_init(
+                generator, self._n_super, init_vlm_super, dtype, device)
         else:
             def init_super(bb: ParamBuilder):
                 for j, kind in enumerate(self._pattern):
@@ -197,6 +245,57 @@ class Model:
         h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
         return x + L.apply_mlp(p["ffn"], h, cfg), (st if collect else None)
 
+    def _audio_block(self, p, x, positions, memory, *, collect: bool):
+        """One Whisper decoder block: causal self attention, cross attention
+        to the encoder's output, MLP; returns (x, ((k, v), (xk, xv)) or None)."""
+        cfg = self.cfg
+        h = L.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+        out, kv = L.apply_attention(p["attn"], h, cfg, positions, causal=True)
+        xk, xv = L.cross_kv(p["xattn"], memory, cfg)
+        x = self._cross_and_ffn(p, "lnx", x + out, xk, xv)
+        return x, ((kv, (xk, xv)) if collect else None)
+
+    def _vlm_super(self, p, x, positions, images, *, window, collect: bool):
+        """One VLM super-block: ``cross_attn_every - 1`` dense self-attention
+        blocks, then the gated cross block over the image tokens; returns
+        (x, {"self{j}": (k, v), "cross": (xk, xv)} or None)."""
+        cfg = self.cfg
+        kvs = {}
+        for j in range(cfg.cross_attn_every - 1):
+            x, _, kvs[f"self{j}"] = self._dense_block(p[f"self{j}"], x, positions,
+                                                      window=window, use_moe=False,
+                                                      collect_kv=collect)
+        kvs["cross"] = L.cross_kv(p["cross"]["xattn"], images, cfg)
+        x = self._cross_and_ffn(p["cross"], "ln1", x, *kvs["cross"])
+        return x, (kvs if collect else None)
+
+    def _cross_and_ffn(self, p, norm: str, x, xk, xv):
+        """The cross-attention residual against memory K/V (its norm named
+        ``norm``: the Whisper decoder's "lnx", the VLM cross block's "ln1"),
+        then the MLP residual."""
+        cfg = self.cfg
+        h = L.apply_norm(p[norm], x, cfg.norm, cfg.norm_eps)
+        x = x + L.apply_cross_attention(p["xattn"], h, xk, xv, cfg)
+        h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+        return x + L.apply_mlp(p["ffn"], h, cfg)
+
+    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper encoder over precomputed frame embeddings (B, F, D):
+        non-causal flash attention in every layer. Not recomputed under
+        remat, as in the reference."""
+        cfg = self.cfg
+        _, F, D = frames.shape
+        dt = cfg.torch_dtype
+        x = frames.to(dt) + _sinusoid(F, D, frames.device).to(dt)
+        positions = torch.arange(F, device=frames.device)
+        for p in layer_slices(params["enc_blocks"]):
+            h = L.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+            out, _ = L.apply_attention(p["attn"], h, cfg, positions, causal=False)
+            x = x + out
+            h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+            x = x + L.apply_mlp(p["ffn"], h, cfg)
+        return L.apply_norm(params["enc_final_norm"], x, cfg.norm, cfg.norm_eps)
+
     def _clip_window_kv(self, kv, S: int):
         """Keep only the trailing window of prefill K/V for the local cache."""
         w = self.cfg.local_window
@@ -229,7 +328,8 @@ class Model:
                 window: int = 0, remat: bool = False):
         """Full-sequence forward.
 
-        batch: {"tokens": (B, S) int}
+        batch: {"tokens": (B, S) int [, "frames": (B, F, D) (audio),
+        "images": (B, I, D) (VLM)]}
         Returns (logits (B, S, V), aux_loss scalar, cache_or_None).
         mode: "train" (logits over all positions) or "prefill" (last-position
         logits and the reference's prefill cache: the dense and MoE families'
@@ -237,7 +337,10 @@ class Model:
         (c_kv (L, B, S, kv_lora), k_rope (L, B, S, rope)), with the MoE
         family's leading dense layers under "dense_kv"; the SSM family's
         stacked {"conv", "ssm"} states, the hybrid family's per-super-block
-        states under "super" and each tail's under "tail{t}").
+        states under "super" and each tail's under "tail{t}"; the audio
+        family's ((k, v), (xk, xv)) stacked over layers under "dec"; the VLM
+        family's {"self{j}": (k, v), "cross": (xk, xv)} stacked over
+        super-blocks under "super").
         remat: recompute each block in the backward instead of keeping its
         activations (every kernel then launches twice per training step).
         """
@@ -274,6 +377,24 @@ class Model:
                 states.append(st)
             if collect:
                 caches["ssm_states"] = _stack_states(states)
+        elif cfg.family == "audio":
+            memory = self._encode(params, batch["frames"])
+            # learned decoder positions
+            x = x + params["dec_pos"].to(x.dtype)[:S][None]
+            states = []
+            for p in layer_slices(params["blocks"]):
+                x, st = block(self._audio_block, p, x, positions, memory, collect=collect)
+                states.append(st)
+            if collect:
+                caches["dec"] = _stack_states(states)
+        elif cfg.family == "vlm":
+            states = []
+            for p in layer_slices(params["super"]):
+                x, st = block(self._vlm_super, p, x, positions, batch["images"], window=window,
+                              collect=collect)
+                states.append(st)
+            if collect:
+                caches["super"] = _stack_states(states)
         else:
             sup_states = []
             for p in layer_slices(params["super"]):
@@ -315,8 +436,11 @@ class Model:
 
     # -- decode -------------------------------------------------------------
 
-    def init_cache(self, batch: int, cache_len: int, *, device="cuda"):
-        """Build an empty decode cache (+ its logical-axes spec tree)."""
+    def init_cache(self, batch: int, cache_len: int, *, device="cuda", memory_len: int = 0):
+        """Build an empty decode cache (+ its logical-axes spec tree). The
+        audio and VLM families also hold the cross-attention K/V ("xk",
+        "xv") of ``memory_len`` memory tokens (default: the config's frames
+        or image tokens), which ``fill_cross_cache`` fills."""
         cfg = self.cfg
         dt = cfg.torch_dtype
         hd = cfg.head_dim_ if cfg.num_heads else 0
@@ -356,6 +480,21 @@ class Model:
                 ("layers", "batch", None, "ff"))
             put("ssm", (n, batch, H, cfg.ssm_head_dim, cfg.ssm_state),
                 ("layers", "batch", "heads", None, None), torch.float32)
+        elif cfg.family in ("audio", "vlm"):
+            kvh = cfg.num_kv_heads
+            if cfg.family == "audio":
+                nx, m = n, memory_len or cfg.num_frames
+                put("k", (n, batch, kvh, cache_len, hd), kvs)
+                put("v", (n, batch, kvh, cache_len, hd), kvs)
+            else:   # per super-block, its self-attention layers on a second axis
+                nx, m = self._n_super, memory_len or cfg.num_image_tokens
+                shape = (nx, cfg.cross_attn_every - 1, batch, kvh, cache_len, hd)
+                kv6 = ("layers", None, "batch", "kv_heads", "kv_seq", None)
+                put("k", shape, kv6)
+                put("v", shape, kv6)
+            xs = ("layers", "batch", "kv_heads", None, None)
+            put("xk", (nx, batch, kvh, m, hd), xs)
+            put("xv", (nx, batch, kvh, m, hd), xs)
         else:
             # the local-attention caches are ring buffers of the window's size,
             # whatever cache_len asks, as in the reference
@@ -388,6 +527,10 @@ class Model:
         new_cache["pos"] = pos + 1
         if cfg.family == "ssm":
             x = self._ssm_decode(params, x, cache, new_cache)
+        elif cfg.family == "audio":
+            x = self._audio_decode(params, x, cache, new_cache, pos)
+        elif cfg.family == "vlm":
+            x = self._vlm_decode(params, x, cache, new_cache, pos, window)
         elif cfg.family == "hybrid":
             x = self._hybrid_decode(params, x, cache, new_cache, pos)
         else:
@@ -438,6 +581,65 @@ class Model:
             for nm, arrs in zip(kv_names, outs):
                 new_cache[pre + nm] = torch.stack(arrs)
         return x
+
+    def _self_attn_decode(self, p, x, k, v, pos, window=0):
+        """The self-attention residual of one decode step: (x, new k, new v)."""
+        cfg = self.cfg
+        h = L.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+        out, nk, nv = L.apply_attention_decode(p["attn"], h, cfg, k, v, pos, window=window)
+        return x + out, nk, nv
+
+    def _audio_decode(self, params, x, cache, new_cache, pos):
+        x = x + params["dec_pos"].to(x.dtype).index_select(0, pos.reshape(1).long())[None]
+        ks, vs = [], []
+        for i, p in enumerate(layer_slices(params["blocks"])):
+            x, nk, nv = self._self_attn_decode(p, x, cache["k"][i], cache["v"][i], pos)
+            x = self._cross_and_ffn(p, "lnx", x, cache["xk"][i], cache["xv"][i])
+            ks.append(nk)
+            vs.append(nv)
+        new_cache["k"], new_cache["v"] = torch.stack(ks), torch.stack(vs)
+        return x
+
+    def _vlm_decode(self, params, x, cache, new_cache, pos, window):
+        cfg = self.cfg
+        ks, vs = [], []
+        for i, p in enumerate(layer_slices(params["super"])):
+            nks, nvs = [], []
+            for j in range(cfg.cross_attn_every - 1):
+                bp = p[f"self{j}"]
+                x, nk, nv = self._self_attn_decode(bp, x, cache["k"][i][j], cache["v"][i][j],
+                                                   pos, window)
+                h = L.apply_norm(bp["ln2"], x, cfg.norm, cfg.norm_eps)
+                x = x + L.apply_mlp(bp["ffn"], h, cfg)
+                nks.append(nk)
+                nvs.append(nv)
+            x = self._cross_and_ffn(p["cross"], "ln1", x, cache["xk"][i], cache["xv"][i])
+            ks.append(torch.stack(nks))
+            vs.append(torch.stack(nvs))
+        new_cache["k"], new_cache["v"] = torch.stack(ks), torch.stack(vs)
+        return x
+
+    def fill_cross_cache(self, params, cache, memory: torch.Tensor):
+        """Precompute cross-attention K/V from modality memory into ``cache``
+        (a new dict; the other families' caches come back as they are).
+
+        audio: ``memory`` = frame embeddings (B, F, D) -> runs the encoder.
+        vlm:   ``memory`` = patch embeddings (B, I, D), cast to the model's dtype.
+        """
+        cfg = self.cfg
+        if cfg.family == "audio":
+            mem = self._encode(params, memory)
+            xattn = [p["xattn"] for p in layer_slices(params["blocks"])]
+        elif cfg.family == "vlm":
+            mem = memory.to(cfg.torch_dtype)
+            xattn = [p["cross"]["xattn"] for p in layer_slices(params["super"])]
+        else:
+            return cache
+        kvs = [L.cross_kv(p, mem, cfg) for p in xattn]
+        cache = dict(cache)
+        cache["xk"] = torch.stack([k for k, _ in kvs])
+        cache["xv"] = torch.stack([v for _, v in kvs])
+        return cache
 
     def _ssm_decode(self, params, x, cache, new_cache):
         cfg = self.cfg

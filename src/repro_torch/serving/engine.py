@@ -9,9 +9,11 @@ stay real. The metrics are simulated milliseconds, not device time.
 
 The batcher groups requests by prompt length (uniform-position batches match
 the scalar-position cache layout of the decode path). As in the reference,
-the prompt is fed through ``decode_step`` one token at a time, so serving
-reaches no hand-written kernel in any family; prefill is the model's
-``forward``.
+the prompt is fed through ``decode_step`` one token at a time, so decoding
+reaches no hand-written kernel; prefill is the model's ``forward``. The
+audio and VLM families first fill each group's cross-attention cache from
+the frontend stub's memory: for audio that runs the Whisper encoder, whose
+non-causal attention is the flash kernel.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cluster import EdgeCluster
 from repro_torch.core.monitor import ResourceMonitor
 from repro_torch.core.scheduler import SCHEDULING_OVERHEAD_MS, TaskRequirements, TaskScheduler
+from repro_torch.data.pipeline import frontend_stub
 from repro_torch.models.model import Model
 
 EDGE_FLOPS_PER_CPU = 5e9  # effective flop/s per 1.0 edge CPU (serving cost model)
@@ -75,11 +78,17 @@ class ServingEngine:
     @torch.no_grad()
     def _generate_group(self, group: List[Request]) -> np.ndarray:
         """Real greedy decode for a uniform-length group. Returns (B, N)."""
+        cfg = self.cfg
         B = len(group)
         P = len(group[0].prompt)
         N = group[0].max_new_tokens
         cache_len = P + N + 1
         cache, _ = self.model.init_cache(B, cache_len, device=self.device)
+        if cfg.family in ("audio", "vlm"):
+            m = cfg.num_frames if cfg.family == "audio" else cfg.num_image_tokens
+            mem = torch.as_tensor(frontend_stub(cfg.family, B, m, cfg.d_model),
+                                  device=self.device)
+            cache = self.model.fill_cross_cache(self.params, cache, mem)
         tokens = torch.as_tensor(np.stack([r.prompt for r in group]), dtype=torch.int32,
                                  device=self.device)
         out = []

@@ -2,12 +2,20 @@
 each ported family: qwen2.5-3b (dense), mamba2-130m (SSM), recurrentgemma-9b
 (hybrid: 2 layers = one (rec, attn) super-block), a 3-layer hybrid whose
 third layer is a tail block, deepseek-v2-236b (MoE with MLA: one dense
-layer, then one MoE layer), kimi-k2-1t-a32b (MoE with GQA) and a dense
-model with MLA. Train logits and the MoE aux loss, prefill logits and
-caches, loss, and decode steps, from the same converted parameters; plus
-the reference's own consistency checks (``tests/test_models.py``) run on
-the port, the MoE ones at its capacity factor 16 (the forward drops tokens
-at capacity, single-token decode never does).
+layer, then one MoE layer), kimi-k2-1t-a32b (MoE with GQA), a dense model
+with MLA, whisper-medium (audio: a 2-layer encoder over 64 frames, 2
+decoder layers with cross attention) and llama-3.2-vision-90b (VLM at 4
+layers: two super-blocks of one self-attention and one gated cross layer,
+over 32 image tokens). Train logits and the MoE aux loss, prefill logits
+and caches, loss, and decode steps (after ``fill_cross_cache`` for audio
+and VLM), from the same converted parameters; plus the reference's own
+consistency checks (``tests/test_models.py``) run on the port, the MoE ones
+at its capacity factor 16 (the forward drops tokens at capacity,
+single-token decode never does).
+
+The VLM's cross-layer ``gate`` starts at zero, and tanh(0) = 0 makes every
+cross layer add nothing, so a wrong cross attention would pass: every VLM
+case sets the gate to 0.5 in both trees before it compares.
 
 Tolerance 1e-4 against the reference: a few layers of the same fp32
 arithmetic summed in another order, over logits of magnitude ~10. The
@@ -26,7 +34,7 @@ from repro.configs import get_config as ref_get_config
 from repro.models.model import Model as RefModel
 from repro_torch.configs import get_config
 from repro_torch.models.model import Model
-from repro_torch.utils.params import from_jax
+from repro_torch.utils.params import from_jax, tree_map
 
 TOL = 1e-4
 T = 16
@@ -41,7 +49,11 @@ VARIANTS = {
     "deepseek-v2-236b": ("deepseek-v2-236b", {}),
     "kimi-k2-1t-a32b": ("kimi-k2-1t-a32b", {}),
     "dense-mla": ("deepseek-v2-236b", {"family": "dense"}),
+    "whisper-medium": ("whisper-medium", {}),
+    "llama-3.2-vision-90b": ("llama-3.2-vision-90b", {"num_layers": 4}),
 }
+#: the VLM's cross-layer gate in every comparison (init: 0, which hides the layer)
+GATE = 0.5
 #: the reference's capacity factor for decode-vs-forward checks of MoE
 #: (tests/test_models.py:84-92)
 NO_DROPS = 16.0
@@ -52,7 +64,33 @@ def _pair(arch="qwen2.5-3b", **changes):
     ref_model = RefModel(dataclasses.replace(ref_get_config(arch).reduced(), **changes))
     model = Model(dataclasses.replace(get_config(arch).reduced(), **changes))
     ref_params, _ = ref_model.init(jax.random.PRNGKey(1))
+    ref_params = open_gates(ref_params)
     return ref_model, ref_params, model, from_jax(ref_params, device="cpu")
+
+
+def open_gates(ref_params):
+    """The reference tree with every gated cross layer's ``gate`` at GATE."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: jnp.full_like(a, GATE) if path[-1].key == "gate" else a, ref_params)
+
+
+def memory(cfg, batch, seed=0):
+    """{"frames"} or {"images"} (numpy fp32, seeded) of the audio and VLM
+    families, else {}."""
+    if cfg.family not in ("audio", "vlm"):
+        return {}
+    m = cfg.num_frames if cfg.family == "audio" else cfg.num_image_tokens
+    arr = np.random.default_rng(100 + seed).standard_normal((batch, m, cfg.d_model))
+    return {"frames" if cfg.family == "audio" else "images": arr.astype(np.float32)}
+
+
+def fill(model, params, cache, mem, framework):
+    """``fill_cross_cache`` with the batch's memory (audio and VLM only)."""
+    if not mem:
+        return cache
+    (arr,) = mem.values()
+    arr = jnp.asarray(arr) if framework == "jax" else torch.from_numpy(arr)
+    return model.fill_cross_cache(params, cache, arr)
 
 
 def _close(got, want, tol=TOL):
@@ -74,13 +112,13 @@ def model_pair(request):
     arch, changes = VARIANTS[request.param]
     ref_model, ref_params, model, params = _pair(arch, **changes)
     toks = np.random.default_rng(0).integers(0, model.cfg.vocab_size, (2, T + 1))
-    return ref_model, ref_params, model, params, toks.astype(np.int32)
+    return ref_model, ref_params, model, params, toks.astype(np.int32), memory(model.cfg, 2)
 
 
 def test_forward_train_and_prefill_match_reference(model_pair):
-    ref_model, ref_params, model, params, toks = model_pair
-    batch_j = {"tokens": jnp.asarray(toks[:, :T])}
-    batch_t = {"tokens": torch.from_numpy(toks[:, :T])}
+    ref_model, ref_params, model, params, toks, mem = model_pair
+    batch_j = {"tokens": jnp.asarray(toks[:, :T]), **tree_map(jnp.asarray, mem)}
+    batch_t = {"tokens": torch.from_numpy(toks[:, :T]), **tree_map(torch.from_numpy, mem)}
     want, want_aux, _ = jax.jit(lambda p, b: ref_model.forward(p, b, mode="train"))(
         ref_params, batch_j)
     got, aux, cache = model.forward(params, batch_t, mode="train")
@@ -115,10 +153,11 @@ def test_forward_matches_reference_other_dense(arch):
 
 
 def test_loss_matches_reference(model_pair):
-    ref_model, ref_params, model, params, toks = model_pair
+    ref_model, ref_params, model, params, toks, mem = model_pair
     want, want_nll = jax.jit(lambda p, b: ref_model.loss_fn(p, b, remat=False))(
-        ref_params, {"tokens": jnp.asarray(toks)})
-    got, got_nll = model.loss_fn(params, {"tokens": torch.from_numpy(toks)})
+        ref_params, {"tokens": jnp.asarray(toks), **tree_map(jnp.asarray, mem)})
+    got, got_nll = model.loss_fn(params, {"tokens": torch.from_numpy(toks),
+                                          **tree_map(torch.from_numpy, mem)})
     _close(got, want)
     _close(got_nll, want_nll)
 
@@ -127,7 +166,7 @@ def test_loss_matches_reference(model_pair):
     ("qwen2.5-3b", "model"), ("qwen2.5-3b", "int8"), ("mamba2-130m", "model"),
     ("recurrentgemma-9b", "model"), ("recurrentgemma-9b-tail", "model"),
     ("deepseek-v2-236b", "model"), ("kimi-k2-1t-a32b", "model"), ("kimi-k2-1t-a32b", "int8"),
-    ("dense-mla", "model")])
+    ("dense-mla", "model"), ("whisper-medium", "model"), ("llama-3.2-vision-90b", "model")])
 def test_decode_steps_match_reference(variant, kv_cache_dtype):
     arch, changes = VARIANTS[variant]
     ref_model, ref_params, model, params = _pair(arch, kv_cache_dtype=kv_cache_dtype,
@@ -135,6 +174,9 @@ def test_decode_steps_match_reference(variant, kv_cache_dtype):
     toks = np.random.default_rng(1).integers(0, model.cfg.vocab_size, (2, T)).astype(np.int32)
     jcache, _ = ref_model.init_cache(2, T + 2)
     tcache, _ = model.init_cache(2, T + 2, device="cpu")
+    mem = memory(model.cfg, 2, seed=1)
+    jcache = fill(ref_model, ref_params, jcache, mem, "jax")
+    tcache = fill(model, params, tcache, mem, "torch")
     step = jax.jit(ref_model.decode_step)
     for t in range(T):
         want, jcache = step(ref_params, jnp.asarray(toks[:, t]), jcache)
@@ -148,15 +190,37 @@ def test_decode_steps_match_reference(variant, kv_cache_dtype):
         _close(tcache[name], jcache[name])
 
 
+@pytest.mark.parametrize("variant", ["whisper-medium", "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("memory_len", [0, 7])
+def test_init_cache_matches_reference(variant, memory_len):
+    """The audio and VLM caches (self K/V and the cross "xk"/"xv" of
+    ``memory_len`` memory tokens, 0 = the config's): the reference's names,
+    shapes, dtypes and logical axes."""
+    arch, changes = VARIANTS[variant]
+    ref_model, _, model, _ = _pair(arch, **changes)
+    want, want_specs = ref_model.init_cache(3, 9, abstract=True, memory_len=memory_len)
+    got, got_specs = model.init_cache(3, 9, device="cpu", memory_len=memory_len)
+    assert sorted(got) == sorted(want) and got_specs == want_specs
+    for name, w in want.items():
+        assert tuple(got[name].shape) == tuple(w.shape), name
+        assert str(got[name].dtype).removeprefix("torch.") == str(w.dtype), name
+    m = memory_len or (model.cfg.num_frames if model.cfg.family == "audio"
+                       else model.cfg.num_image_tokens)
+    assert got["xk"].shape[3] == m
+
+
 def test_decode_matches_forward(model_pair):
     """Sequential decode logits == full-forward logits at every position (MoE
     at the drop-free capacity factor)."""
-    _, _, model, params, toks = model_pair
+    _, _, model, params, toks, mem = model_pair
     if model.cfg.num_experts:
         model = Model(dataclasses.replace(model.cfg, capacity_factor=NO_DROPS))
     tokens = torch.from_numpy(toks[:1, :T])
-    fwd, _, _ = model.forward(params, {"tokens": tokens}, mode="train")
+    mem = {k: a[:1] for k, a in mem.items()}
+    fwd, _, _ = model.forward(params, {"tokens": tokens, **tree_map(torch.from_numpy, mem)},
+                              mode="train")
     cache, _ = model.init_cache(1, 32, device="cpu")
+    cache = fill(model, params, cache, mem, "torch")
     v = model.cfg.vocab_size
     errs = []
     for t in range(T):

@@ -18,12 +18,10 @@ from repro_torch.models.moe import apply_moe
 from repro_torch.utils.params import count_params, from_jax, layer_slices, tree_bytes
 
 DENSE_ARCHS = [a for a in ARCH_IDS if get_config(a).family == "dense"]
+#: the other families (SSM, hybrid, MoE, audio, VLM), all ported
 OTHER_ARCHS = [a for a in ARCH_IDS if get_config(a).family != "dense"]
-#: the families ported besides the dense one
-PORTED_ARCHS = [a for a in OTHER_ARCHS if get_config(a).family in ("ssm", "hybrid", "moe")]
-#: the archs with a part still to port: the audio and VLM families, and the
-#: MoE family's expert parallelism
-UNPORTED_PARTS = [a for a in OTHER_ARCHS if get_config(a).family not in ("ssm", "hybrid")]
+#: the archs with a part still to port: the MoE family's expert parallelism
+MOE_ARCHS = [a for a in OTHER_ARCHS if get_config(a).family == "moe"]
 
 
 def _leaves(tree, prefix=""):
@@ -77,7 +75,35 @@ def test_from_jax_keeps_moe_and_mla_leaves(arch):
     assert "dense_blocks/ffn/w_up" in leaves
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + PORTED_ARCHS)
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-90b"])
+def test_from_jax_keeps_audio_and_vlm_leaves(arch):
+    """Every leaf of a reduced bf16 audio or VLM model crosses with its value
+    and dtype: the fp32 cross-layer ``gate`` (set to 0.5 here, since its
+    initial 0 would not show a lost value), the learned decoder positions
+    and the encoder stack, the bf16 projections."""
+    ref_params, _ = RefModel(ref_get_config(arch).reduced()).init(jax.random.PRNGKey(0))
+    ref_params = jax.tree_util.tree_map_with_path(
+        lambda path, a: jax.numpy.full_like(a, 0.5) if path[-1].key == "gate" else a,
+        ref_params)
+    ref_leaves, leaves = _leaves(ref_params), _leaves(from_jax(ref_params, device="cpu"))
+    assert sorted(leaves) == sorted(ref_leaves)
+    for path, ref_leaf in ref_leaves.items():
+        assert str(leaves[path].dtype).removeprefix("torch.") == str(ref_leaf.dtype), path
+        np.testing.assert_array_equal(leaves[path].float().numpy(),
+                                      np.asarray(ref_leaf, np.float32), err_msg=path)
+    if arch == "whisper-medium":
+        assert leaves["dec_pos"].dtype == torch.bfloat16
+        assert leaves["enc_blocks/attn/w_q"].shape[0] == 2      # two encoder layers
+        assert leaves["blocks/xattn/w_k"].dtype == torch.bfloat16
+        assert "blocks/xattn/gate" not in leaves                 # Whisper's is ungated
+    else:
+        gate = leaves["super/cross/xattn/gate"]
+        assert gate.dtype == torch.float32 and tuple(gate.shape) == (1, 1)
+        assert torch.all(gate == 0.5)
+        assert "super/self0/attn/w_q" in leaves
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS + OTHER_ARCHS)
 def test_init_tree_matches_reference(arch):
     """Same paths, shapes, dtypes and specs as the reference ``init``."""
     cfg = get_config(arch).reduced()
@@ -107,32 +133,31 @@ def test_init_is_seeded():
         assert torch.equal(leaf, _leaves(b)[path]), path
 
 
-@pytest.mark.parametrize("arch", UNPORTED_PARTS)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_unported_families_raise(arch):
-    """The audio and VLM families raise at ``Model``; the MoE family builds,
-    and its 2D expert parallelism (which needs a mesh) raises."""
+    """Every family builds; the MoE family's 2D expert parallelism (which
+    needs a mesh) raises."""
     cfg = get_config(arch).reduced()
-    if cfg.family != "moe":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(cfg)
-        return
     params, _ = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
     x = torch.zeros(1, 4, cfg.d_model)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 16"):
         apply_moe(layer_slices(params["blocks"])[0]["ffn"], x, cfg, impl="2d")
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCHS)
+@pytest.mark.parametrize("arch", OTHER_ARCHS)
 def test_full_width_tree_matches_reference(arch):
-    """The SSM, hybrid and MoE families at full width (deepseek-v2-236b's
-    236 B and kimi-k2's 1.0 T parameters included), on the meta device: the
-    reference's parameter paths, shapes and dtypes, and its parameter count."""
+    """The SSM, hybrid, MoE, audio and VLM families at full width
+    (deepseek-v2-236b's 236 B, kimi-k2's 1.0 T and llama-3.2-vision-90b's
+    87.7 B parameters included), on the meta device: the reference's
+    parameter paths, shapes, dtypes and logical axes, and its parameter
+    count."""
     ref_model = RefModel(ref_get_config(arch))
-    ref_params, _ = ref_model.init(abstract=True)
-    params, _ = Model(get_config(arch)).init(device="meta")
+    ref_params, ref_specs = ref_model.init(abstract=True)
+    params, specs = Model(get_config(arch)).init(device="meta")
     ref_leaves, leaves = _leaves(ref_params), _leaves(params)
     assert sorted(leaves) == sorted(ref_leaves)
     for path, ref_leaf in ref_leaves.items():
         assert tuple(leaves[path].shape) == tuple(ref_leaf.shape), path
         assert str(leaves[path].dtype).removeprefix("torch.") == str(ref_leaf.dtype), path
+    assert _leaves(specs) == _leaves(ref_specs)
     assert Model(get_config(arch)).param_count() == ref_model.param_count()

@@ -1,7 +1,10 @@
 """The port's serving engine against the reference's on the same converted
-fp32 parameters, for a reduced model of each ported family (dense qwen2.5-3b,
+fp32 parameters, for a reduced model of each family (dense qwen2.5-3b,
 SSM mamba2-130m, hybrid recurrentgemma-9b, MoE deepseek-v2-236b with MLA and
-kimi-k2-1t-a32b with GQA): identical greedy tokens,
+kimi-k2-1t-a32b with GQA, audio whisper-medium, whose engine runs the
+encoder over the frontend stub's frames for each group, and VLM
+llama-3.2-vision-90b at 4 layers with its cross-layer gate at 0.5, since
+the initial 0 would hide the cross layers): identical greedy tokens,
 identical node per request, and an identical metrics dict (the simulated
 clock, NSA scoring and FLOP charge are the same code and the same parameter
 count). Mirrors ``tests/test_system.py``'s serving checks."""
@@ -9,6 +12,7 @@ count). Mirrors ``tests/test_system.py``'s serving checks."""
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -31,14 +35,20 @@ def _requests(cls):
 
 
 ARCHS = ["qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b", "deepseek-v2-236b",
-         "kimi-k2-1t-a32b"]
+         "kimi-k2-1t-a32b", "whisper-medium", "llama-3.2-vision-90b"]
+#: config changes for the comparison: two VLM super-blocks
+CHANGES = {"llama-3.2-vision-90b": {"num_layers": 4}}
 
 
 @pytest.fixture(scope="module", params=ARCHS)
 def served(request):
-    ref_cfg = dataclasses.replace(ref_get_config(request.param).reduced(), dtype="float32")
-    cfg = dataclasses.replace(get_config(request.param).reduced(), dtype="float32")
+    changes = {"dtype": "float32", **CHANGES.get(request.param, {})}
+    ref_cfg = dataclasses.replace(ref_get_config(request.param).reduced(), **changes)
+    cfg = dataclasses.replace(get_config(request.param).reduced(), **changes)
     ref_params, _ = RefModel(ref_cfg).init(jax.random.PRNGKey(5))
+    # the VLM's gate at 0.5 (init 0, tanh(0) = 0, would hide the cross layers)
+    ref_params = jax.tree_util.tree_map_with_path(
+        lambda path, a: jnp.full_like(a, 0.5) if path[-1].key == "gate" else a, ref_params)
     ref_reqs, reqs = _requests(RefRequest), _requests(Request)
     ref_metrics = RefServingEngine(ref_cfg, ref_params, ref_make_paper_cluster(),
                                    max_batch=4).serve(ref_reqs)

@@ -1,8 +1,11 @@
 """The port's training path against the reference, on reduced configs in
 fp32 with the reference's parameters (JAX ``init``, converted).
 
-- ``loss_fn`` gradients of the dense, SSM, hybrid and MoE (deepseek-v2
-  with MLA, kimi-k2 with GQA) families, with and without remat, against ``jax.value_and_grad`` of the reference's
+- ``loss_fn`` gradients of the dense, SSM, hybrid, MoE (deepseek-v2
+  with MLA, kimi-k2 with GQA), audio (whisper: the encoder's non-causal
+  attention included) and VLM (4 layers, the cross-layer gate at 0.5: at
+  its initial 0 the cross layers would add nothing) families, with and
+  without remat, against ``jax.value_and_grad`` of the reference's
   ``loss_fn``; once on the plain path and once through the kernels'
   ``torch.autograd.Function``s, whose launch is swapped for the plain version
   (the CPU has no kernel).
@@ -62,7 +65,11 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-4
 T = 16
 ARCHS = ["qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b", "deepseek-v2-236b",
-         "kimi-k2-1t-a32b"]
+         "kimi-k2-1t-a32b", "whisper-medium", "llama-3.2-vision-90b"]
+#: config changes of the gradient checks: two VLM super-blocks
+CHANGES = {"llama-3.2-vision-90b": {"num_layers": 4}}
+#: the VLM's cross-layer gate in every comparison (init 0 hides the layer)
+GATE = 0.5
 
 
 def _leaves(tree, path=""):
@@ -82,9 +89,26 @@ def _tokens(cfg, seed=0, batch=2):
     return rng.integers(0, cfg.vocab_size, (batch, T + 1)).astype(np.int32)
 
 
-def _port_grads(model, params, tokens, remat):
+def _memory(cfg, seed=0, batch=2) -> dict:
+    """The audio frames or VLM image tokens of a batch (numpy fp32), else {}."""
+    if cfg.family not in ("audio", "vlm"):
+        return {}
+    m = cfg.num_frames if cfg.family == "audio" else cfg.num_image_tokens
+    arr = np.random.default_rng(100 + seed).standard_normal((batch, m, cfg.d_model))
+    return {"frames" if cfg.family == "audio" else "images": arr.astype(np.float32)}
+
+
+def _open_gates(params):
+    """The port's tree with every gated cross layer's gate at GATE."""
+    return {k: (_open_gates(v) if isinstance(v, dict)
+                else torch.full_like(v, GATE) if k == "gate" else v)
+            for k, v in params.items()}
+
+
+def _port_grads(model, params, tokens, remat, mem=None):
     inputs = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss, _ = model.loss_fn(inputs, {"tokens": tokens}, remat=remat)
+    mem = {k: torch.from_numpy(a).to(tokens.device) for k, a in (mem or {}).items()}
+    loss, _ = model.loss_fn(inputs, {"tokens": tokens, **mem}, remat=remat)
     grads = iter(torch.autograd.grad(loss, tree_leaves(inputs)))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
@@ -92,18 +116,21 @@ def _port_grads(model, params, tokens, remat):
 @pytest.fixture(scope="module", params=[(a, r) for a in ARCHS for r in (False, True)],
                 ids=[f"{a}-remat{r}" for a in ARCHS for r in (False, True)])
 def reference_grads(request):
-    """(arch, remat, port model, port params, tokens, ref loss, ref grads)."""
+    """(arch, remat, port model, port params, tokens, memory, ref loss, ref
+    grads)."""
     arch, remat = request.param
-    cfg32 = {"dtype": "float32"}
-    ref_model = RefModel(dataclasses.replace(ref_get_config(arch).reduced(), **cfg32))
+    changes = {"dtype": "float32", **CHANGES.get(arch, {})}
+    ref_model = RefModel(dataclasses.replace(ref_get_config(arch).reduced(), **changes))
     ref_params, _ = ref_model.init(jax.random.PRNGKey(1))
-    model = Model(dataclasses.replace(get_config(arch).reduced(), **cfg32))
-    toks = _tokens(model.cfg)
+    ref_params = jax.tree_util.tree_map_with_path(
+        lambda path, a: jnp.full_like(a, GATE) if path[-1].key == "gate" else a, ref_params)
+    model = Model(dataclasses.replace(get_config(arch).reduced(), **changes))
+    toks, mem = _tokens(model.cfg), _memory(model.cfg)
     (loss, _), grads = jax.jit(jax.value_and_grad(
-        lambda p, t: ref_model.loss_fn(p, {"tokens": t}, remat=remat), has_aux=True))(
-            ref_params, jnp.asarray(toks))
+        lambda p, b: ref_model.loss_fn(p, b, remat=remat), has_aux=True))(
+            ref_params, {"tokens": jnp.asarray(toks), **tree_map(jnp.asarray, mem)})
     return (arch, remat, model, from_jax(ref_params, device="cpu"), torch.from_numpy(toks),
-            float(loss), jax.tree.map(np.asarray, grads))
+            mem, float(loss), jax.tree.map(np.asarray, grads))
 
 
 def _check_grads(got_loss, got, want_loss, want):
@@ -116,8 +143,8 @@ def _check_grads(got_loss, got, want_loss, want):
 
 
 def test_loss_grads_match_reference(reference_grads):
-    _, remat, model, params, toks, want_loss, want = reference_grads
-    loss, grads = _port_grads(model, params, toks, remat)
+    _, remat, model, params, toks, mem, want_loss, want = reference_grads
+    loss, grads = _port_grads(model, params, toks, remat, mem)
     _check_grads(loss, grads, want_loss, want)
 
 
@@ -150,17 +177,22 @@ def _plain_launches(monkeypatch):
 def test_loss_grads_through_kernel_functions_match_reference(reference_grads, monkeypatch):
     """The card's path (each kernel inside its autograd Function), on the CPU:
     under remat every launch happens twice, once in the forward and once in
-    the recompute."""
-    arch, remat, model, params, toks, want_loss, want = reference_grads
+    the recompute. The Whisper encoder is not recomputed (the reference's
+    remat covers the decoder blocks only)."""
+    arch, remat, model, params, toks, mem, want_loss, want = reference_grads
     counts = _plain_launches(monkeypatch)
-    loss, grads = _port_grads(model, params, toks, remat)
+    loss, grads = _port_grads(model, params, toks, remat, mem)
     _check_grads(loss, grads, want_loss, want)
     per_forward = {"qwen2.5-3b": {"flash_attention": 2},
                    "mamba2-130m": {"ssd_scan": 2},
                    "recurrentgemma-9b": {"rglru_scan": 1, "flash_attention": 1},
                    "deepseek-v2-236b": {"flash_attention": 2},
-                   "kimi-k2-1t-a32b": {"flash_attention": 2}}[arch]
-    assert counts == {k: per_forward.get(k, 0) * (2 if remat else 1) for k in counts}
+                   "kimi-k2-1t-a32b": {"flash_attention": 2},
+                   "whisper-medium": {"flash_attention": 2},       # the decoder
+                   "llama-3.2-vision-90b": {"flash_attention": 2}}[arch]
+    once = {"whisper-medium": {"flash_attention": 2}}.get(arch, {})  # the encoder
+    assert counts == {k: per_forward.get(k, 0) * (2 if remat else 1) + once.get(k, 0)
+                      for k in counts}
 
 
 def _reduced_qwen_pair():
@@ -351,13 +383,15 @@ def test_loss_grads_on_the_card_match_cpu(arch, remat):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = Model(dataclasses.replace(get_config(arch).reduced(), dtype="float32"))
+    model = Model(dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                                      **CHANGES.get(arch, {})))
     params, _ = model.init(torch.Generator().manual_seed(0), device="cpu")
-    toks = torch.from_numpy(_tokens(model.cfg))
-    want_loss, want = _port_grads(model, params, toks, remat)
+    params = _open_gates(params)
+    toks, mem = torch.from_numpy(_tokens(model.cfg)), _memory(model.cfg)
+    want_loss, want = _port_grads(model, params, toks, remat, mem)
     launches = {fn: fn.launches for fn in (fa.flash_attention, ss.ssd_scan, rg.rglru_scan)}
     got_loss, got = _port_grads(model, tree_map(lambda p: p.cuda(), params), toks.cuda(),
-                                remat)
+                                remat, mem)
     ran = [fn for fn, n in launches.items() if fn.launches > n]
     assert ran, "no kernel launched"
     assert abs(float(got_loss) - float(want_loss)) < TOL
