@@ -21,7 +21,11 @@ frames, its encoder through the flash kernel's non-causal mask, and served
 (each request group's cross cache runs the encoder); llama-3.2-vision-90b
 (VLM; d_model 8192, 64/8 heads x 128, d_ff 28672, a gated cross layer over
 1601 image tokens every 5th layer) at full width cut to 10 layers (10.66 B
-parameters) is prefilled and served. The script builds every
+parameters) is prefilled and served. Then the kernel tooling: the rates
+the card attains against the cost model's H100 block, the batch-cost
+calibration sweep (``scripts/calibrate_costmodel_torch.py``) on the three
+Hopper kernels, whose curves the paper's planner then uses for MobileNetV2,
+and the transformer-partitioning example. The script builds every
 kernel from the sources in the checkout, holds each against its plain
 PyTorch version on the card, times it (and its backward, the plain version's VJP) beside its bound,
 its plain version and the closest PyTorch library call, and checks that each
@@ -84,8 +88,23 @@ Phases (any failure exits non-zero):
       gate set to 0.5, since its initial 0 hides the cross layers): prefill
       (1, 4096) over images (1, 1601, 8192) (8 flash launches; cross
       attention is plain PyTorch), fp32 check at 5 layers, serving
-  27. JSON lines of the training, MobileNetV2 and kernel results, the card
-      line, then the device line last
+  27. attainable rates against the cost model's H100 block: a bf16 matmul
+      at 8192^3 and a 1 GiB device copy (CUDA events), each as a share of
+      GPU_PEAK_FLOPS and GPU_HBM_BW (fails above 1.05)
+  28. the calibration sweep: scripts/calibrate_costmodel_torch.py's
+      run on the card (Attention, SSD and RGLRU through the Hopper kernels
+      in fp32, Linear and Conv2d through the library; k in 1, 2, 4, 8, host
+      clock; each point's device time by the profiler beside it), the
+      artifact written into the checkout and loaded back as calibrated,
+      naming the card; each kernel launched
+  29. MobileNetV2 (32, 224, 224, 3) planned by the DP planner on the paper
+      cluster at expected_k = 4 with the analytic model and with the
+      card's curves: both plans, verify_numerics on the card, run(200) with
+      micro-batches of up to 4 (simulated edge ms), and whether the plan
+      moved
+  30. examples/partition_transformer_torch.py in a process without JAX
+  31. JSON lines of the training, MobileNetV2, kernel-tooling and kernel
+      results, the card line, then the device line last
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -94,8 +113,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import importlib.util
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -111,7 +132,11 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (DistributedInference, EdgeCluster,  # noqa: E402
-                              ModelPartitioner, make_paper_cluster, run_monolithic)
+                              EngineConfig, ModelPartitioner, make_paper_cluster,
+                              run_monolithic)
+from repro_torch.core.cost_model import (ANALYTIC_BATCH_MODEL, BatchCostModel,  # noqa: E402
+                                         GPU_HBM_BW as HBM_BYTES_PER_S,
+                                         GPU_PEAK_FLOPS as PEAK_BF16_FLOPS)
 from repro_torch.data import DataConfig, batches_for_model, frontend_stub  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -127,9 +152,9 @@ from repro_torch.train import make_train_step  # noqa: E402
 from repro_torch.utils.params import tree_leaves, tree_map  # noqa: E402
 
 SEED = 0
-PEAK_BF16_FLOPS = 989e12     # H100 SXM dense tensor-core rate, bf16
+# the bf16 and memory peaks are the cost model's H100 block (PEAK_BF16_FLOPS,
+# HBM_BYTES_PER_S above); the fp32 rate is the same data sheet's
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
 MAIN = dict(b=1, hq=16, hkv=2, s=2048, d=128)   # qwen2.5-3b attention at S=2048
 PREFILL = dict(b=2, hq=16, hkv=2, s=512, d=128)  # qwen2.5-3b attention in phase 4's prefill
 # recurrentgemma-9b local attention at its (1, 4096) prefill
@@ -152,6 +177,11 @@ VLM_DEC = dict(b=1, hq=64, hkv=8, s=4096, d=128, dv=128)
 #: the VLM's cross-layer gate on the card (init 0: tanh(0) = 0 hides the layers)
 GATE = 0.5
 MNV2_INPUT = (32, 224, 224, 3)   # the paper's batch of 32 at MobileNetV2's IMAGE_SIZE, NHWC
+ATTAIN_GEMM_N = 8192             # the bf16 GEMM of the attainable-rate phase, N^3
+ATTAIN_COPY_BYTES = 2 ** 30      # the streaming copy of the attainable-rate phase
+CURVES_REQUESTS = 200            # requests per run on the card's curves
+CALIBRATE = ROOT / "scripts" / "calibrate_costmodel_torch.py"
+EXAMPLE = ROOT / "examples" / "partition_transformer_torch.py"
 #: the kernels' wrappers, whose ``launches`` count their kernel launches
 KERNELS = {"flash_attention": fa.flash_attention, "ssd_scan": ss.ssd_scan,
            "rglru_scan": rg.rglru_scan}
@@ -233,9 +263,11 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 def device_ms(fn, n: int = 10) -> float:
     """Device time per call of ``fn``: the sum of its kernels' time under
     torch.profiler, without the host's gaps between launches. A profile
-    that records no device time (it happens now and then on the card) is
-    taken again; after three empty ones the CUDA-event time stands in, and
-    the log says so."""
+    that records no device time, or a count of kernels that is no multiple
+    of the n calls (each call launches the same kernels, so the profiler
+    dropped some: it happens late in this script's long process), is taken
+    again; after three such profiles the CUDA-event time stands in, and the
+    log says so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -244,11 +276,13 @@ def device_ms(fn, n: int = 10) -> float:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us > 0:
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in kernels)
+        if total_us > 0 and sum(e.count for e in kernels) % n == 0:
             return total_us / n / 1e3
-    log("    the profiler recorded no device time in 3 tries: CUDA-event time instead")
+    log("    the profiler recorded no device time, or dropped kernels, in 3 tries: "
+        "CUDA-event time instead")
     return cuda_ms(fn, iters=n)
 
 
@@ -1326,6 +1360,126 @@ def phase_mobilenetv2(device_line: str) -> dict:
                 infer_wall_ms=[miss_s * 1e3, hit_s * 1e3], timing=timing)
 
 
+def phase_attainable(device_line: str) -> dict:
+    """The rates this card attains against the cost model's H100 block: a
+    bf16 GEMM at 8192^3 and a streaming copy of 1 GiB, by CUDA events. A
+    share above 1.05 means the block's published peaks are wrong for the
+    card."""
+    n = ATTAIN_GEMM_N
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    a, b = (torch.randn((n, n), generator=g, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    c = torch.empty_like(a)
+    gemm_ms = cuda_ms(lambda: torch.matmul(a, b, out=c), iters=20)
+    flops_per_s = 2.0 * n ** 3 / (gemm_ms * 1e-3)
+    del a, b, c
+    src = torch.ones(ATTAIN_COPY_BYTES // 4, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(lambda: dst.copy_(src), iters=20)
+    bytes_per_s = 2.0 * ATTAIN_COPY_BYTES / (copy_ms * 1e-3)   # read once, written once
+    del src, dst
+    torch.cuda.empty_cache()
+    out = dict(gemm_ms=gemm_ms, gemm_tflops=flops_per_s / 1e12,
+               gemm_share=flops_per_s / PEAK_BF16_FLOPS, copy_ms=copy_ms,
+               copy_gb_per_s=bytes_per_s / 1e9, copy_share=bytes_per_s / HBM_BYTES_PER_S)
+    log(f"  [{device_line}] bf16 matmul {n}^3: {gemm_ms:.4f} ms, {out['gemm_tflops']:.1f} "
+        f"TFLOP/s = {out['gemm_share']:.3f} of the block's {PEAK_BF16_FLOPS / 1e12:.0f}")
+    log(f"  [{device_line}] copy of {ATTAIN_COPY_BYTES / 2 ** 30:.0f} GiB: {copy_ms:.4f} ms, "
+        f"{out['copy_gb_per_s']:.1f} GB/s (bytes read + written) = {out['copy_share']:.3f} of "
+        f"the block's {HBM_BYTES_PER_S / 1e9:.0f}")
+    assert out["gemm_share"] <= 1.05 and out["copy_share"] <= 1.05, \
+        f"the H100 block's peaks are below what this card attains: {out}"
+    return out
+
+
+def phase_calibration(device_line: str) -> dict:
+    """``scripts/calibrate_costmodel_torch.py`` on the card: the k in {1, 2,
+    4, 8} sweep of the three Hopper kernels and the two library classes,
+    the curves fitted and the artifact written into the checkout, then
+    loaded back as the port's calibrated cost model."""
+    spec = importlib.util.spec_from_file_location("calibrate_costmodel_torch", CALIBRATE)
+    calib = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(calib)
+    reset_counts()
+    path = calib.main(device="cuda")
+    launches, variants = read_counts(), read_variants()
+    body = json.loads(path.read_text())
+    # the device's part of each point: kernel time per call by the profiler,
+    # on the sweep's inputs (cuDNN in IEEE fp32, as in the sweep)
+    with calib.ieee_conv():
+        device_us = {kind: {str(k): device_ms(factory(k)) * 1e3 for k in calib.K_SWEEP}
+                     for kind, _, factory in calib._kernel_cases("cuda")}
+    for row in body["bench"]:
+        t = ", ".join(f"{row['t_us'][str(k)]:.1f}" for k in calib.K_SWEEP)
+        dev = ", ".join(f"{device_us[row['kind']][str(k)]:.1f}" for k in calib.K_SWEEP)
+        log(f"  [{device_line}] {row['kind']}: t_us at k = 1, 2, 4, 8: {t} (device {dev}); "
+            f"fixed {row['fixed_us']:.1f} us, per item {row['per_item_us']:.1f} us, tail slope "
+            f"{row['tail_slope_us']:.1f} us; launches {row.get('launches', 'none (library)')}"
+            f", variants {row.get('variants', '-')}")
+    model = BatchCostModel.from_artifact(path)
+    log(f"  {path} loads as {model.source!r}: "
+        + json.dumps(body["curves"], sort_keys=True))
+    assert not model.is_analytic and model.source != "analytic-fallback", model.source
+    assert device_line in model.source, (model.source, device_line)
+    for name in KERNELS:
+        assert launches[name] > 0, f"the sweep launched no {name}: {launches}"
+    return dict(launches=launches, variants=variants, path=path, source=model.source,
+                bench=body["bench"], device_us=device_us, curves=body["curves"])
+
+
+def phase_card_curves(artifact: pathlib.Path, device_line: str) -> dict:
+    """The paper's flow on the card's curves: MobileNetV2 planned by the DP
+    planner (the greedy partitioner reads no cost curve) on the paper
+    cluster at expected_k = 4, with the analytic model and with the fresh
+    artifact; each verified on the card and run through the event engine
+    with micro-batches of up to 4. The reports are simulated edge ms."""
+    graph = mobilenetv2_graph()
+    gpu = build_mobilenetv2(torch.Generator().manual_seed(SEED), device="cuda")
+    x = torch.randn(MNV2_INPUT, generator=torch.Generator().manual_seed(SEED + 3)).cuda()
+    executor = lambda lo, hi, h, res: run_range(gpu, lo, hi, h, res)  # noqa: E731
+    out = {}
+    for label, model in (("analytic", ANALYTIC_BATCH_MODEL),
+                         ("card curves", BatchCostModel.from_artifact(artifact))):
+        amp = DistributedInference(make_paper_cluster(), ModelPartitioner(graph),
+                                   executor=executor, method="planner", expected_k=4,
+                                   batch_model=model)
+        assert amp.verify_numerics(x), f"{label}: partitioned forward diverged on the card"
+        rep = amp.run(CURVES_REQUESTS, name=label, engine=EngineConfig(
+            transfer="overlap", micro_batch=4, adaptive_batch=True))
+        assert len(rep.columns) == CURVES_REQUESTS, (label, len(rep.columns))
+        out[label] = dict(source=model.source,
+                          plan=[(p.lo, p.hi) for p in amp.plan.partitions],
+                          placement={i: amp.placement[i] for i in sorted(amp.placement)},
+                          throughput_rps=rep.throughput_rps, p50_ms=rep.p50_sojourn_ms,
+                          p99_ms=rep.p99_sojourn_ms, batch_hist=rep.batch_hist)
+        r = out[label]
+        log(f"  {label} ({model.source}): plan {r['plan']} on {r['placement']}; verify_numerics "
+            f"on the card True; run({CURVES_REQUESTS}) in simulated edge ms (not device time): "
+            f"{r['throughput_rps']:.4f} rps, sojourn p50 {r['p50_ms']:.2f} / p99 "
+            f"{r['p99_ms']:.2f} ms, batches {r['batch_hist']}")
+    a, c = out["analytic"], out["card curves"]
+    out["plan_moved"] = (a["plan"], a["placement"]) != (c["plan"], c["placement"])
+    log(f"  the card's curves {'moved' if out['plan_moved'] else 'did not move'} the plan")
+    return out
+
+
+def phase_example() -> list:
+    """``examples/partition_transformer_torch.py`` at its defaults, in a
+    process where JAX and the reference package cannot be imported."""
+    code = ("import runpy, sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "
+            "sys.argv = sys.argv[1:]; runpy.run_path(sys.argv[0], run_name='__main__')")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, str(EXAMPLE)], capture_output=True,
+                          text=True, env=env, timeout=300)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        log(f"    {line}")
+    assert proc.returncode == 0, f"{EXAMPLE.name} exited {proc.returncode}: {proc.stderr[-2000:]}"
+    log(f"  {EXAMPLE.name}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1396,8 +1550,19 @@ def main() -> int:
     # 21.3 GB); the fp32 check keeps one super-block (5 layers, 25.5 GB)
     paths["llama-3.2-vision-90b (10 layers) prefill (1, 4096) over 1601 image tokens"] = drive(
         "llama-3.2-vision-90b", 24, 1, 4096, device_line, consistency_layers=5, num_layers=10)
+    torch.cuda.empty_cache()
 
-    log("phase 27: results")
+    log("phase 27: attainable bf16 GEMM and copy rates against the cost model's H100 block")
+    attainable = phase_attainable(device_line)
+    log("phase 28: the batch-cost calibration sweep on the Hopper kernels")
+    calibration = phase_calibration(device_line)
+    paths["calibration sweep, k in (1, 2, 4, 8)"] = calibration
+    log("phase 29: MobileNetV2 planned and run at expected_k = 4 on the card's curves")
+    card_curves = phase_card_curves(calibration["path"], device_line)
+    log(f"phase 30: {EXAMPLE.relative_to(ROOT)}")
+    phase_example()
+
+    log("phase 31: results")
     kernels = []
     for name, source, replaces in (
             ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:30"),
@@ -1412,6 +1577,9 @@ def main() -> int:
             max_abs_err=cases[name][0]["max_abs_err"], **t, cases=cases[name]))
     print(json.dumps({"training": train_runs, "grad_max_abs_err": grads}))
     print(json.dumps({"mobilenetv2": mnv2, "device": device_line}))
+    calibration = {k: v for k, v in calibration.items() if k != "path"}
+    print(json.dumps({"attainable": attainable, "calibration": calibration,
+                      "card_curves": card_curves, "device": device_line}))
     print(json.dumps({"kernels": kernels}))
     print(device_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,9 @@
 
 The *layer* costs live on the ``ModelGraph`` (see models/graph.py). This
 module turns partition costs into simulated execution times on heterogeneous
-edge nodes. The reference's TPU stage costing (v5e constants) is not carried
-over: measured H100 figures take its place when the port's dry-run needs them.
+edge nodes. In place of the reference's TPU stage costing, its last block
+holds the H100's published peaks (NVIDIA's data sheet) and the stage and
+boundary times they give, for mesh stage assignment on the card.
 
 Calibration: Table II of the paper gives per-profile inference times that are
 exactly proportional to 1/CPU (234.56 * 1.0 ≈ 389.27 * 0.6 ≈ 583.91 * 0.4 ≈
@@ -179,10 +180,11 @@ def working_set_bytes(graph: ModelGraph, lo: int, hi: int, batch: int = 1) -> fl
 # --- batch-aware cost model (calibrated exec_for(k) curves) ------------------
 
 #: default artifact path (repo-relative) for kernel-calibrated batch curves;
-#: written by ``scripts/calibrate_costmodel.py``, loaded explicitly via
+#: written by ``scripts/calibrate_costmodel_torch.py`` from the Hopper
+#: kernels on the card, loaded explicitly via
 #: :meth:`BatchCostModel.from_artifact` — never implicitly, so the analytic
 #: default stays bit-for-bit reproducible
-CALIBRATION_ARTIFACT = pathlib.Path("artifacts/calibration/batch_curves.json")
+CALIBRATION_ARTIFACT = pathlib.Path("artifacts/calibration/batch_curves_h100.json")
 
 
 @dataclass(frozen=True)
@@ -223,7 +225,7 @@ class BatchCostModel:
     micro-batch semantics, preserved bit-for-bit (callers keep their
     literal k=1 expressions on the analytic path). With per-kind
     :class:`KindCurve` entries (fit from kernel
-    microbenchmarks by ``scripts/calibrate_costmodel.py``), execution
+    microbenchmarks by ``scripts/calibrate_costmodel_torch.py``), execution
     curves gain measured overhead knees and bandwidth-bound tails while
     the absolute throughput anchor stays the paper's Table-II calibration.
     """
@@ -314,7 +316,7 @@ class BatchCostModel:
     @classmethod
     def from_artifact(cls, path: Union[str, pathlib.Path, None] = None
                       ) -> "BatchCostModel":
-        """Load a calibration artifact (``scripts/calibrate_costmodel.py``
+        """Load a calibration artifact (``scripts/calibrate_costmodel_torch.py``
         output). A missing or unreadable artifact returns the analytic
         fallback model instead of raising — calibration is an overlay, not
         a dependency."""
@@ -346,3 +348,22 @@ class BatchCostModel:
 #: defaults to this, so "no artifact" means one object identity, not
 #: scattered None checks
 ANALYTIC_BATCH_MODEL = BatchCostModel()
+
+
+# --- H100 adaptation ---------------------------------------------------------
+
+# NVIDIA H100 SXM published peaks (per card; NVIDIA's data sheet, dense rates,
+# at the 700 W power limit), used for stage costing and roofline bounds.
+GPU_PEAK_FLOPS = 989e12          # bf16 tensor cores, dense
+GPU_HBM_BW = 3.35e12             # bytes/s
+GPU_LINK_BW = 450e9              # bytes/s, NVLink each way per card
+
+
+def gpu_stage_ms(flops: float, chips: int) -> float:
+    """Compute-roofline stage time on ``chips`` H100 cards."""
+    return flops / (GPU_PEAK_FLOPS * chips) * 1e3
+
+
+def gpu_boundary_ms(num_bytes: float) -> float:
+    """NVLink transfer time for a stage-boundary activation."""
+    return num_bytes / GPU_LINK_BW * 1e3

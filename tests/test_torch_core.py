@@ -14,6 +14,8 @@ import importlib
 import importlib.util
 import inspect
 import pathlib
+import re
+import sys
 import types
 
 import numpy as np
@@ -142,9 +144,15 @@ ADAPTATIONS = {
         ("import numpy as np\n", "import numpy as np\nimport torch\n"),
         ("ok = np.allclose(np.asarray(h), np.asarray(y_mono), rtol=1e-5, atol=1e-5)",
          "ok = torch.allclose(h, y_mono, rtol=1e-5, atol=1e-5)")],
+    # the default artifact is the card's curves, not the host-XLA ones
+    "core/cost_model.py": [
+        ('CALIBRATION_ARTIFACT = pathlib.Path("artifacts/calibration/batch_curves.json")',
+         'CALIBRATION_ARTIFACT = pathlib.Path("artifacts/calibration/batch_curves_h100.json")')],
 }
 #: where the reference's TPU stage costing (v5e constants) starts; not copied
 TPU_BLOCK = "# --- TPU adaptation"
+#: where the port's H100 block, its counterpart, starts
+GPU_BLOCK = "# --- H100 adaptation"
 COPIED = ([f"core/{p.name}" for p in sorted((REF / "core").glob("*.py"))]
           + ["models/graph.py", "configs/mobilenetv2.py"])
 
@@ -178,9 +186,10 @@ def test_copy_matches_reference_outside_named_adaptations(rel):
     for old, new in ADAPTATIONS.get(rel, ()):
         assert ref.count(old) == 1, (rel, old)
         ref = ref.replace(old, new)
+    port = (PORT / rel).read_text()
     if rel == "core/cost_model.py":
-        ref = ref[:ref.index(TPU_BLOCK)]
-    assert _dump((PORT / rel).read_text()) == _dump(ref), rel
+        ref, port = ref[:ref.index(TPU_BLOCK)], port[:port.index(GPU_BLOCK)]
+    assert _dump(port) == _dump(ref), rel
 
 
 def test_port_verify_numerics_bound_is_the_references():
@@ -202,3 +211,91 @@ def test_digest_of_a_tensor_is_the_references():
     from repro_torch.core.cache import digest
     x = np.random.default_rng(1).standard_normal((2, 5, 5, 3)).astype(np.float32)
     assert digest(torch.from_numpy(x)) == digest(x) == ref_digest(x)
+
+
+def test_gpu_block_is_the_data_sheets():
+    """The H100 SXM's published dense bf16 rate, HBM rate and NVLink rate
+    each way, and the stage and boundary times they give."""
+    from repro_torch.core import cost_model as cm
+    assert (cm.GPU_PEAK_FLOPS, cm.GPU_HBM_BW, cm.GPU_LINK_BW) == (989e12, 3.35e12, 450e9)
+    for flops, chips in ((1.5e15, 1), (4.9e14, 128), (7.0, 64)):
+        assert cm.gpu_stage_ms(flops, chips) == flops / (989e12 * chips) * 1e3
+    for num_bytes in (0.0, 1.0, 3.0e8):
+        assert cm.gpu_boundary_ms(num_bytes) == num_bytes / 450e9 * 1e3
+
+
+STAGE = re.compile(r"  stage (\d+): layers \[\s*(\d+),\s*(\d+)\) on\s+(\d+) chips -> "
+                   r"\s*([\d.]+) ms compute, boundary\s+([\d.]+) ms (ICI|NVLink)")
+
+
+def _example_lines(path, block_fns, monkeypatch, capsys):
+    """``main()`` of an example at qwen2.5-3b: its lines, and the arguments
+    its two block functions were called with."""
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    calls = []
+    for name in block_fns:
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, fn=fn: calls.append(a) or fn(*a))
+    monkeypatch.setattr(sys, "argv", [str(path), "--arch", "qwen2.5-3b"])
+    capsys.readouterr()
+    mod.main()
+    return capsys.readouterr().out.splitlines(), calls
+
+
+def test_partition_transformer_example_matches_reference(monkeypatch, capsys):
+    """The same lines as the reference's example, but for the four stage
+    lines: there the layer ranges and chip counts are the reference's, and
+    the times are the H100 block's on the same FLOPs and bytes."""
+    from repro_torch.core.cost_model import gpu_boundary_ms, gpu_stage_ms
+    ref, ref_calls = _example_lines(ROOT / "examples" / "partition_transformer.py",
+                                    ("tpu_stage_ms", "tpu_boundary_ms"), monkeypatch, capsys)
+    port, calls = _example_lines(ROOT / "examples" / "partition_transformer_torch.py",
+                                 ("gpu_stage_ms", "gpu_boundary_ms"), monkeypatch, capsys)
+    assert calls == ref_calls and len(calls) == 8
+    assert len(port) == len(ref)
+    stages = [(r, p) for r, p in zip(ref, port) if STAGE.fullmatch(r)]
+    assert len(stages) == 4
+    assert [r for r, _ in stages] == ref[-4:]
+    assert port[:-4] == ref[:-4]
+    for i, (r, p) in enumerate(stages):
+        rm, pm = STAGE.fullmatch(r), STAGE.fullmatch(p)
+        assert pm and pm.group(7) == "NVLink", p
+        assert pm.groups()[:4] == rm.groups()[:4]
+        (flops, chips), (num_bytes,) = calls[2 * i], calls[2 * i + 1]
+        assert int(pm.group(4)) == chips
+        assert pm.group(5) == f"{gpu_stage_ms(flops, chips):.3f}"
+        assert pm.group(6) == f"{gpu_boundary_ms(num_bytes):.3f}"
+
+
+def _calibrated_run(pkg, method, calibrated=True):
+    """MobileNetV2 on the paper cluster, planned and micro-batched at k = 4
+    with the reference's committed calibration artifact (or the analytic
+    model): (plan, placement, report)."""
+    core = importlib.import_module(f"{pkg}.core")
+    cost_model = importlib.import_module(f"{pkg}.core.cost_model")
+    engine = importlib.import_module(f"{pkg}.core.engine")
+    graph = importlib.import_module(f"{pkg}.models.graph").mobilenetv2_graph()
+    model = cost_model.BatchCostModel.from_artifact(
+        ROOT / "artifacts" / "calibration" / "batch_curves.json") if calibrated else None
+    d = core.DistributedInference(core.make_paper_cluster(), core.ModelPartitioner(graph),
+                                  method=method, expected_k=4, batch_model=model)
+    rep = d.run(200, engine=engine.EngineConfig(transfer="overlap", micro_batch=4,
+                                                adaptive_batch=True))
+    return [(p.lo, p.hi) for p in d.plan.partitions], dict(d.placement), rep
+
+
+@pytest.mark.parametrize("method", ("greedy", "planner"))
+def test_calibrated_distributed_inference_equal_on_both_packages(method):
+    """The batch-aware path with calibrated curves: the same plan and a
+    bit-equal report on both packages, and a report that differs from the
+    analytic model's (so the curves were read)."""
+    ref_plan, ref_place, r = _calibrated_run("repro", method)
+    plan, place, p = _calibrated_run("repro_torch", method)
+    assert (plan, place) == (ref_plan, ref_place)
+    assert r.columns.bitwise_equal(p.columns)
+    assert (r.batch_hist, r.network_bytes, r.adaptation) == \
+        (p.batch_hist, p.network_bytes, p.adaptation)
+    *_, analytic = _calibrated_run("repro_torch", method, calibrated=False)
+    assert not analytic.columns.bitwise_equal(p.columns)
