@@ -94,9 +94,13 @@ Phases (any failure exits non-zero):
   28. the calibration sweep: scripts/calibrate_costmodel_torch.py's
       run on the card (Attention, SSD and RGLRU through the Hopper kernels
       in fp32, Linear and Conv2d through the library; k in 1, 2, 4, 8, host
-      clock; each point's device time by the profiler beside it), the
-      artifact written into the checkout and loaded back as calibrated,
-      naming the card; each kernel launched
+      clock, the least of 3 passes; each point's device time by the
+      profiler beside it, or by CUDA events where the profiler lost
+      kernels, which the results say), the artifact written under the
+      temporary directory and loaded back as calibrated, naming the card;
+      each kernel launched; the sweep's inputs at k = 1 and 8 through each
+      kernel against its plain version (fp32: attention 2e-5 and the SSD
+      2e-4 on the CUDA-core variants, the RG-LRU scan 2e-5)
   29. MobileNetV2 (32, 224, 224, 3) planned by the DP planner on the paper
       cluster at expected_k = 4 with the analytic model and with the
       card's curves: both plans, verify_numerics on the card, run(200) with
@@ -260,30 +264,46 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, n: int = 10) -> float:
-    """Device time per call of ``fn``: the sum of its kernels' time under
-    torch.profiler, without the host's gaps between launches. A profile
-    that records no device time, or a count of kernels that is no multiple
-    of the n calls (each call launches the same kernels, so the profiler
-    dropped some: it happens late in this script's long process), is taken
-    again; after three such profiles the CUDA-event time stands in, and the
-    log says so."""
+def device_time(fn, n: int = 10) -> tuple:
+    """(device ms per call of ``fn``, how it was taken). "profiler": the sum
+    of its kernels' time under torch.profiler, without the host's gaps
+    between launches, from a profile that holds every kernel: one call is
+    profiled alone for its count of kernels, and n calls must show n times
+    that count. The profiler keeps only some kernel events now and then in
+    a fresh process and in almost every profile late in this script's long
+    process (each profile here is a new single-cycle profiler, so its
+    acc_events, which keeps events across the cycles of one profiler, does
+    not apply; scripts/profiler_probe.py counts what profiles keep). A
+    short profile is taken again; after three
+    the CUDA-event time of n calls stands in, "cuda events", and the log
+    names the kernels each profile kept."""
     from torch.profiler import ProfilerActivity, profile
+
+    def kernels(calls: int) -> dict:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        total_us = sum(e.self_device_time_total for e in kernels)
-        if total_us > 0 and sum(e.count for e in kernels) % n == 0:
-            return total_us / n / 1e3
-    log("    the profiler recorded no device time, or dropped kernels, in 3 tries: "
+        one, many = kernels(1), kernels(n)
+        per_call = sum(c for c, _ in one.values())
+        total_us = sum(t for _, t in many.values())
+        if per_call and total_us > 0 and sum(c for c, _ in many.values()) == n * per_call:
+            return total_us / n / 1e3, "profiler"
+    short = lambda ks: {k[:48]: c for k, (c, _) in ks.items()}  # noqa: E731
+    log(f"    the profiler kept {short(one)} of one call and {short(many)} of {n}, 3 times: "
         "CUDA-event time instead")
-    return cuda_ms(fn, iters=n)
+    return cuda_ms(fn, iters=n), "cuda events"
+
+
+def device_ms(fn, n: int = 10) -> float:
+    """Device ms per call of ``fn`` (``device_time``; the log names a stand-in)."""
+    return device_time(fn, n)[0]
 
 
 def check(kernel: str, name: str, got, want, tol: float) -> dict:
@@ -1395,27 +1415,36 @@ def phase_attainable(device_line: str) -> dict:
 def phase_calibration(device_line: str) -> dict:
     """``scripts/calibrate_costmodel_torch.py`` on the card: the k in {1, 2,
     4, 8} sweep of the three Hopper kernels and the two library classes,
-    the curves fitted and the artifact written into the checkout, then
-    loaded back as the port's calibrated cost model."""
+    the curves fitted and the artifact written under the temporary
+    directory (the checkout's own artifact is the standalone script's),
+    then loaded back as the port's calibrated cost model. The sweep's own
+    inputs at k = 1 and 8 then go through each kernel once more, held
+    against its plain version."""
     spec = importlib.util.spec_from_file_location("calibrate_costmodel_torch", CALIBRATE)
     calib = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(calib)
+    out = pathlib.Path(tempfile.gettempdir()) / "chip_smoke_batch_curves_h100.json"
+    thunks = {}
     reset_counts()
-    path = calib.main(device="cuda")
+    path = calib.main(out, device="cuda", thunks=thunks)
     launches, variants = read_counts(), read_variants()
     body = json.loads(path.read_text())
     # the device's part of each point: kernel time per call by the profiler,
-    # on the sweep's inputs (cuDNN in IEEE fp32, as in the sweep)
+    # on the thunks the sweep timed (cuDNN in IEEE fp32, as in the sweep)
     with calib.ieee_conv():
-        device_us = {kind: {str(k): device_ms(factory(k)) * 1e3 for k in calib.K_SWEEP}
-                     for kind, _, factory in calib._kernel_cases("cuda")}
+        device_us = {}
+        for (kind, k), thunk in thunks.items():
+            ms, by = device_time(thunk)
+            device_us.setdefault(kind, {})[str(k)] = dict(us=ms * 1e3, by=by)
     for row in body["bench"]:
         t = ", ".join(f"{row['t_us'][str(k)]:.1f}" for k in calib.K_SWEEP)
-        dev = ", ".join(f"{device_us[row['kind']][str(k)]:.1f}" for k in calib.K_SWEEP)
+        dev = ", ".join(f"{d['us']:.1f}{'' if d['by'] == 'profiler' else ' (events)'}"
+                        for d in device_us[row["kind"]].values())
         log(f"  [{device_line}] {row['kind']}: t_us at k = 1, 2, 4, 8: {t} (device {dev}); "
             f"fixed {row['fixed_us']:.1f} us, per item {row['per_item_us']:.1f} us, tail slope "
             f"{row['tail_slope_us']:.1f} us; launches {row.get('launches', 'none (library)')}"
-            f", variants {row.get('variants', '-')}")
+            f", variants {row.get('variants', '-')}; {len(row['passes_us'])} passes"
+            f"{', stalled at k = ' + str(row['stalled_k']) if 'stalled_k' in row else ''}")
     model = BatchCostModel.from_artifact(path)
     log(f"  {path} loads as {model.source!r}: "
         + json.dumps(body["curves"], sort_keys=True))
@@ -1423,8 +1452,28 @@ def phase_calibration(device_line: str) -> dict:
     assert device_line in model.source, (model.source, device_line)
     for name in KERNELS:
         assert launches[name] > 0, f"the sweep launched no {name}: {launches}"
+    checks = {}
+    for kind, name, variant, tol, plain in (
+            ("Attention", "flash_attention", "cuda_core", 2e-5,
+             lambda q, k, v: [ref.attention_ref(q, k, v, causal=True)]),
+            ("SSD", "ssd_scan", "cuda_core", 2e-4, lambda *a: list(ref.ssd_sequential(*a))),
+            ("RGLRU", "rglru_scan", None, 2e-5, lambda a, b: [ref.rglru_ref(a, b)])):
+        for k in (calib.K_SWEEP[0], calib.K_SWEEP[-1]):
+            thunk = thunks[kind, k]
+            reset_counts()
+            got = thunk()
+            torch.cuda.synchronize()
+            assert read_counts()[name] == 1, (kind, k, read_counts())
+            if variant:
+                assert read_variants()[name][variant] == 1, (kind, k, read_variants())
+            shape = "x".join(map(str, thunk.args[0].shape))
+            checks.setdefault(name, []).append(dict(check(
+                name, f"sweep {kind} k={k} ({shape}) fp32 [{variant or 'scan'}]",
+                list(got) if isinstance(got, tuple) else [got], plain(*thunk.args), tol),
+                variant=variant))
     return dict(launches=launches, variants=variants, path=path, source=model.source,
-                bench=body["bench"], device_us=device_us, curves=body["curves"])
+                bench=body["bench"], device_us=device_us, curves=body["curves"],
+                checks=checks)
 
 
 def phase_card_curves(artifact: pathlib.Path, device_line: str) -> dict:
@@ -1574,7 +1623,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
             replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=cases[name][0]["max_abs_err"], **t, cases=cases[name]))
+            max_abs_err=cases[name][0]["max_abs_err"], **t,
+            cases=cases[name] + calibration["checks"][name]))
     print(json.dumps({"training": train_runs, "grad_max_abs_err": grads}))
     print(json.dumps({"mobilenetv2": mnv2, "device": device_line}))
     calibration = {k: v for k, v in calibration.items() if k != "path"}

@@ -6,7 +6,8 @@ bit for bit on one injected timing table, chosen so that a class passes the
 tail threshold, classes are clipped at both ends of ``SCALE_CLIP`` and a
 class has a zero fixed term. The port's sweep also runs end to end on the
 CPU (the kernels' plain versions), and on the card (``gpu``) it must launch
-each of the three Hopper kernels.
+each of the three Hopper kernels. Each point keeps the least of its
+passes, and a stall that outlasts them is flagged and refused.
 """
 
 import importlib.util
@@ -108,6 +109,48 @@ def test_injected_timings_give_equal_curves(port, ref, monkeypatch):
         assert {k: r[k] for k in w} == w
 
 
+@pytest.mark.parametrize("ts, want", [
+    ((53.2, 201.8, 59.9, 54.4), [2]),        # a stall at k = 2
+    ((234.5, 83.1, 80.7, 227.3), [1]),
+    ((72.0, 88.7, 105.3, 10362.9), [8]),      # the last point past any tail
+    ((44.7, 67.2, 109.8, 342.3), []),         # a tail the curve can clip
+    ((110.2, 106.7, 94.1, 107.9), []),        # fixed cost alone
+    (TABLE["SSD"], []),
+])
+def test_stalled_points(port, ts, want):
+    assert port._stalled(list(ts)) == want
+
+
+def test_a_stall_in_one_pass_is_dropped_and_a_lasting_one_refused(
+        port, ref, monkeypatch, tmp_path):
+    """Each point keeps the least of its passes; a stall in every pass is
+    flagged, timed to MAX_PASSES, and keeps the port's artifact unwritten."""
+    unit_costs = {kind: cost for kind, cost, _ in ref._kernel_cases()}
+    _inject(monkeypatch, port, unit_costs)
+    clean = port._bench_us
+    seen = set()
+
+    def first_pass_stalls(thunk, *args, n=None):
+        stall = 1000.0 if thunk not in seen else 0.0
+        seen.add(thunk)
+        return clean(thunk) + stall
+    monkeypatch.setattr(port, "_bench_us", first_pass_stalls)
+    _, rows = port.run_calibration("cpu")
+    for r in rows:
+        assert r["t_us"] == {str(k): t for k, t in zip(port.K_SWEEP, TABLE[r["kind"]])}
+        assert len(r["passes_us"]) == port.N_PASSES and "stalled_k" not in r
+
+    monkeypatch.setattr(port, "_bench_us", lambda thunk, *a, n=None: (
+        clean(thunk) * (10.0 if thunk == ("RGLRU", 2) else 1.0)))
+    monkeypatch.setattr(port, "REPO", tmp_path)
+    with pytest.raises(RuntimeError, match="host stalls"):
+        port.main(tmp_path / port.CALIBRATION_ARTIFACT, device="cpu")
+    assert not (tmp_path / port.CALIBRATION_ARTIFACT).exists()
+    out = port.main(tmp_path / "elsewhere.json", device="cpu")
+    rglru = [r for r in json.loads(out.read_text())["bench"] if r["kind"] == "RGLRU"][0]
+    assert rglru["stalled_k"] == [2] and len(rglru["passes_us"]) == port.MAX_PASSES
+
+
 def test_cpu_sweep_writes_a_calibrated_artifact(port, monkeypatch, tmp_path, capsys):
     from repro_torch.core.cost_model import BatchCostModel
     monkeypatch.setattr(port, "N_REPS", 1)
@@ -148,9 +191,10 @@ def test_sweep_on_the_card_launches_each_kernel(port, monkeypatch):
     model, rows = port.run_calibration("cuda")
     assert not model.is_analytic and "H100" in model.source
     by_kind = {r["kind"]: r for r in rows}
-    calls = len(port.K_SWEEP) * 2
     for kind in ("Attention", "SSD", "RGLRU"):
+        # a warm-up and N_REPS timed calls per point and pass
+        calls = len(port.K_SWEEP) * 2 * len(by_kind[kind]["passes_us"])
         assert by_kind[kind]["launches"] == calls, by_kind[kind]
-    # fp32 inputs take the CUDA-core variants
-    assert by_kind["Attention"]["variants"] == {"cuda_core": calls}
-    assert by_kind["SSD"]["variants"] == {"cuda_core": calls}
+        # fp32 inputs take the CUDA-core variants
+        if kind != "RGLRU":
+            assert by_kind[kind]["variants"] == {"cuda_core": calls}
