@@ -25,7 +25,10 @@ parameters) is prefilled and served. Then the kernel tooling: the rates
 the card attains against the cost model's H100 block, the batch-cost
 calibration sweep (``scripts/calibrate_costmodel_torch.py``) on the three
 Hopper kernels, whose curves the paper's planner then uses for MobileNetV2,
-and the transformer-partitioning example. The script builds every
+and the transformer-partitioning example. Then the multi-device code on
+the one card, under a NCCL process group of one: qwen2.5-3b through the
+Megatron-SP blocks and a deepseek-v2 MoE layer through the mesh branches.
+The script builds every
 kernel from the sources in the checkout, holds each against its plain
 PyTorch version on the card, times it (and its backward, the plain version's VJP) beside its bound,
 its plain version and the closest PyTorch library call, and checks that each
@@ -107,8 +110,19 @@ Phases (any failure exits non-zero):
       micro-batches of up to 4 (simulated edge ms), and whether the plan
       moved
   30. examples/partition_transformer_torch.py in a process without JAX
-  31. JSON lines of the training, MobileNetV2, kernel-tooling and kernel
-      results, the card line, then the device line last
+  31. the multi-device path on the one card: a NCCL process group of one
+      and its (1, 1) ("data", "model") mesh; full-width qwen2.5-3b (36
+      layers) in fp32 through the Megatron-SP blocks (block_impl =
+      "shardmap" under {"seq": ("model",)}: all-gather, local heads and FF,
+      reduce-scatter per sublayer), its train forward at (1, 512) against
+      the plain blocks within 5e-4, with one flash launch per layer
+  32. one deepseek-v2-236b MoE layer at full width (160 experts top-6, 2
+      shared) in bf16 at (1, 512) through the expert-parallel and the 2D
+      mesh branches: bit-equal to the off-mesh branch (at a group of one
+      every collective is the identity); then the group is destroyed
+  33. JSON lines of the training, MobileNetV2, kernel-tooling,
+      multi-device and kernel results, the card line, then the device line
+      last
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -116,6 +130,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -129,6 +144,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -146,6 +162,7 @@ from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models.graph import mobilenetv2_graph  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.mobilenetv2 import build_mobilenetv2, run_full, run_range  # noqa: E402
@@ -153,7 +170,8 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.optim import adamw, cosine_with_warmup  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.train import make_train_step  # noqa: E402
-from repro_torch.utils.params import tree_leaves, tree_map  # noqa: E402
+from repro_torch.utils.params import ParamBuilder, tree_leaves, tree_map  # noqa: E402
+from repro_torch.utils.sharding import logical_rules  # noqa: E402
 
 SEED = 0
 # the bf16 and memory peaks are the cost model's H100 block (PEAK_BF16_FLOPS,
@@ -184,11 +202,18 @@ MNV2_INPUT = (32, 224, 224, 3)   # the paper's batch of 32 at MobileNetV2's IMAG
 ATTAIN_GEMM_N = 8192             # the bf16 GEMM of the attainable-rate phase, N^3
 ATTAIN_COPY_BYTES = 2 ** 30      # the streaming copy of the attainable-rate phase
 CURVES_REQUESTS = 200            # requests per run on the card's curves
+SP_SEQ = 512                     # tokens of the multi-device phases' (1, S) inputs
 CALIBRATE = ROOT / "scripts" / "calibrate_costmodel_torch.py"
 EXAMPLE = ROOT / "examples" / "partition_transformer_torch.py"
 #: the kernels' wrappers, whose ``launches`` count their kernel launches
 KERNELS = {"flash_attention": fa.flash_attention, "ssd_scan": ss.ssd_scan,
            "rglru_scan": rg.rglru_scan}
+#: each wrapper's kernel symbols in a profile, one event per launch (the SSD's
+#: tensor-core variant runs three passes; its last, ssd_chunk_scan, once)
+KERNEL_SYMBOLS = {"flash_attention": ("flash_fwd",), "ssd_scan": ("ssd_fwd", "ssd_chunk_scan"),
+                  "rglru_scan": ("rglru_fwd",)}
+#: profiles of one call taken before one that lost kernel events is kept
+PROFILE_ATTEMPTS = 3
 #: the profiler ranges of the kernels' backward passes (their plain VJPs)
 BACKWARD_RANGES = {"flash_attention": "flash_attention backward (plain VJP)",
                    "ssd_scan": "ssd_scan backward (plain VJP)",
@@ -372,10 +397,16 @@ def flash_vs_plain():
         results.append(dict(check("flash_attention", f"{name} [{variant}]", [got], [want], tol),
                             variant=variant))
     # the model's own layout: transposed (B, S, H, D) views in, and out through
-    # a (B, S, H, Dv) allocation, so that neither side copies
-    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
-        b_, s_, h_, d_ = PREFILL["b"], PREFILL["s"], PREFILL["hq"], PREFILL["d"]
-        q, k, v = qkv_heads_last(SEED + 50 + i, **PREFILL, dv=d_, dtype=dtype)
+    # a (B, S, H, Dv) allocation, so that neither side copies. Phase 4's
+    # prefill, and phase 31's fp32 (1, 512) forward: the Megatron-SP block's
+    # 16 q heads over the 16 kv heads it picked, and the plain block's 2
+    for i, (name, shape, dtype) in enumerate((
+            ("prefill (2,16,2,512,128) bf16", PREFILL, torch.bfloat16),
+            ("prefill (2,16,2,512,128) fp32", PREFILL, torch.float32),
+            ("Megatron-SP (1,16,16,512,128) fp32", dict(PREFILL, b=1, hkv=16), torch.float32),
+            ("plain block (1,16,2,512,128) fp32", dict(PREFILL, b=1), torch.float32))):
+        b_, s_, h_, d_ = shape["b"], shape["s"], shape["hq"], shape["d"]
+        q, k, v = qkv_heads_last(SEED + 50 + i, **shape, dv=d_, dtype=dtype)
         variant = fa.route(q, k, v)
         assert variant == ("wgmma" if dtype == torch.bfloat16 else "cuda_core"), variant
         got = fa.flash_attention(q, k, v, causal=True)
@@ -383,8 +414,8 @@ def flash_vs_plain():
         assert got.stride() == (s_ * h_ * d_, d_, h_ * d_, 1), got.stride()
         want = ref.attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-        name = f"prefill (2,16,2,512,128) {dtype} on (B,S,H,D) views [{variant}]"
-        results.append(dict(check("flash_attention", name, [got], [want], tol), variant=variant))
+        results.append(dict(check("flash_attention", f"{name} causal on (B,S,H,D) views "
+                                  f"[{variant}]", [got], [want], tol), variant=variant))
     # DeepSeek-V2's MLA: q and k (B, H, S, 192) and v (B, H, S, 128) as
     # apply_mla hands them over, the scale given as 1/sqrt(nope + rope)
     for i, (name, shape, dtype, tol, want_variant) in enumerate((
@@ -942,10 +973,8 @@ def reference_cache_shapes(model, batch: int, seq: int) -> dict:
     return out
 
 
-def profile_call(fn, label: str, device_line: str) -> dict:
-    """Device time by kernel over one call of ``fn`` (torch.profiler), and the
-    device time under each kernel's backward range; returns the wall, busy
-    and backward times in ms (empty where no device time was recorded)."""
+def _profile_once(fn) -> tuple:
+    """(key_averages, wall us) of one call of ``fn`` under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -953,19 +982,48 @@ def profile_call(fn, label: str, device_line: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
+    return prof.key_averages(), wall_us
+
+
+def profile_call(fn, label: str, device_line: str) -> dict:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and the
+    device time under each kernel's backward range; returns the wall, busy
+    and backward times in ms (empty where no device time was recorded).
+
+    The profiler loses kernel events now and then (see ``device_time``): a
+    profile is whole only if it holds every launch that the wrappers counted
+    during the call. One that holds fewer is taken again, up to
+    PROFILE_ATTEMPTS times; the last is kept with ``whole: false`` in the
+    log and the results (its busy time and counts are then lower bounds).
+    A call that launches none of the repo's kernels cannot be held so:
+    ``whole: null``. A retake calls ``fn`` again, so ``fn`` must leave what
+    it reads as it found it, or say itself what each call did (the training
+    step counts the steps it takes)."""
     ranges = set(BACKWARD_RANGES.values())
-    # the backward ranges also appear on the device's timeline as annotations,
-    # which are spans, not kernels: they stay out of the busy time
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in ranges]
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        before = read_counts()
+        events, wall_us = _profile_once(fn)
+        launched = {k: n - before[k] for k, n in read_counts().items()}
+        # the backward ranges also appear on the device's timeline as annotations,
+        # which are spans, not kernels: they stay out of the busy time
+        kernels = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in ranges]
+        kept = {name: sum(e.count for e in kernels if any(sym in e.key for sym in syms))
+                for name, syms in KERNEL_SYMBOLS.items()}
+        whole = (kept == launched) if any(launched.values()) else None
+        if whole is not False:
+            break
+        log(f"  profile of {label}, attempt {attempt}: kept {kept} of the wrappers' "
+            f"{launched} launches")
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
         log(f"  profile of {label}: no device time recorded; breakdown not measured")
         return {}
+    verdict = {True: "whole", None: "not checkable (no launch of the repo's kernels)",
+               False: f"whole: false after {attempt} attempts (a lower bound)"}[whole]
     log(f"  profile [{device_line}] {label} under the profiler: wall {wall_us / 1e3:.3f} ms, "
         f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% of wall), "
-        f"{sum(e.count for e in kernels)} kernel launches")
+        f"{sum(e.count for e in kernels)} kernel launches; {verdict}")
     # copies (layout changes such as .contiguous()): PyTorch's copy kernels
     copies = [e for e in kernels if "copy" in e.key.lower()]
     log(f"    copy kernels: {sum(e.count for e in copies)} launches, "
@@ -982,7 +1040,8 @@ def profile_call(fn, label: str, device_line: str) -> dict:
     for e in ranked[:8] + ours:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {100 * e.self_device_time_total / busy_us:5.1f}%"
             f"  x{e.count:<4d} {e.key[:90]}")
-    out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+    out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, whole=whole, attempts=attempt,
+               kept_launches=kept, wrapper_launches=launched,
                launches=sum(e.count for e in kernels),
                copy_launches=sum(e.count for e in copies),
                layout_launches=sum(e.count for e in layout), backward_ms={})
@@ -1266,8 +1325,19 @@ def phase_train(cfg, batch: int, seq: int, steps: int, device_line: str, *,
             log(f"  every one of the {len(before)} parameter leaves changed in step 1")
             before = None
     tokens = torch.from_numpy(next(data)["tokens"]).cuda()
-    prof = profile_call(lambda: step_fn(params, state, {"tokens": tokens}),
-                        f"one more training step ({batch}, {seq} + 1)", device_line)
+    # the step updates the parameters and moments in place: each retake of
+    # the profile is one more step, carried on from the last
+    taken = [params, state]
+
+    def one_more_step():
+        taken[:2] = step_fn(*taken[:2], {"tokens": tokens})[:2]
+        taken.append(1)
+
+    prof = profile_call(one_more_step, f"one more training step ({batch}, {seq} + 1)",
+                        device_line)
+    params, state, steps = taken[0], taken[1], steps + len(taken) - 2
+    log(f"  the profile took {len(taken) - 2} step(s): {steps} steps in all")
+    assert int(state.step) == steps, (int(state.step), steps)
     if check_checkpoint:
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
@@ -1529,6 +1599,110 @@ def phase_example() -> list:
     return lines
 
 
+def phase_megatron_sp(mesh, device_line: str) -> dict:
+    """qwen2.5-3b at full width and depth in fp32 (TF32 off): the train
+    forward at (1, SP_SEQ) through the Megatron-SP blocks (``block_impl =
+    "shardmap"`` under the rules {"seq": ("model",)} on the (1, 1) mesh of
+    a NCCL group of one) against the plain blocks without rules, within
+    5e-4; the counts are zeroed just before the shardmap forward and read
+    just after: one flash launch per layer."""
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), dtype="float32")
+    model = Model(cfg)
+    params, _ = model.init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SP_SEQ), generator=g, device="cuda",
+                           dtype=torch.int32)
+    walls = {}
+    with torch.no_grad():
+        for impl in ("gspmd", "shardmap"):
+            model.block_impl = impl
+            walls[impl] = []
+            for _ in range(2):
+                rules = (logical_rules(mesh, {"seq": ("model",)}) if impl == "shardmap"
+                         else contextlib.nullcontext())
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                with rules:
+                    logits, _, _ = model.forward(params, {"tokens": tokens}, mode="train")
+                torch.cuda.synchronize()
+                walls[impl].append(time.perf_counter() - t0)
+                launches, variants = read_counts(), read_variants()
+            if impl == "gspmd":
+                want = logits
+    v = cfg.vocab_size
+    err = float((logits[..., :v] - want[..., :v]).abs().max())
+    log(f"  [{device_line}] {model.param_count(params) / 1e9:.3f} B parameters in fp32, train "
+        f"forward (1, {SP_SEQ}), two calls each: plain blocks "
+        f"{walls['gspmd'][0]:.4f} / {walls['gspmd'][1]:.4f} s, Megatron-SP blocks "
+        f"{walls['shardmap'][0]:.4f} / {walls['shardmap'][1]:.4f} s of wall; max|dlogit| = "
+        f"{err:.3e} (tolerance 5e-4; |logit| up to {float(want[..., :v].abs().max()):.3e}); "
+        f"launches of the last call {launches}, by variant {variants}")
+    assert launches == {"flash_attention": cfg.num_layers, "ssd_scan": 0, "rglru_scan": 0}, \
+        launches
+    assert bool(torch.isfinite(logits[..., :v]).all()) and logits.shape == (1, SP_SEQ,
+                                                                            cfg.padded_vocab)
+    assert err <= 5e-4, f"Megatron-SP blocks disagree with the plain blocks: {err}"
+    del logits, want
+
+    def forward(impl):
+        model.block_impl = impl
+        with (logical_rules(mesh, {"seq": ("model",)}) if impl == "shardmap"
+              else contextlib.nullcontext()):
+            model.forward(params, {"tokens": tokens}, mode="train")
+
+    profiles = {}
+    with torch.no_grad():
+        for impl, label in (("gspmd", "plain"), ("shardmap", "Megatron-SP")):
+            profiles[impl] = profile_call(lambda: forward(impl),
+                                          f"one {label} train forward (1, {SP_SEQ})", device_line)
+    del model, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, variants=variants, max_abs_err=err, wall_s=walls,
+                profiles=profiles)
+
+
+def phase_moe_mesh(mesh, device_line: str) -> dict:
+    """One MoE layer of deepseek-v2-236b at full width (160 experts top-6, 2
+    shared, d_model 5120) in bf16 on (1, SP_SEQ) tokens: the off-mesh
+    branch, then under the rules on the (1, 1) mesh the expert-parallel
+    branch (``impl="auto"``) and the weight-resident 2D one (``"2d"``). At a
+    group of one each collective is the identity and each rank holds every
+    block, so both must equal the off-mesh result bit for bit."""
+    cfg = get_config("deepseek-v2-236b")
+    b = ParamBuilder(torch.Generator(device="cuda").manual_seed(SEED), dtype=cfg.torch_dtype,
+                     device="cuda")
+    moe.init_moe(b, "ffn", cfg)
+    p = b.build()[0]["ffn"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    x = torch.randn((1, SP_SEQ, cfg.d_model), generator=g, device="cuda").to(cfg.torch_dtype)
+    out = {}
+    with torch.no_grad():
+        for label, impl, rules in (("off-mesh", "auto", contextlib.nullcontext()),
+                                   ("auto", "auto", logical_rules(mesh)),
+                                   ("2d", "2d", logical_rules(mesh))):
+            with rules:
+                call = lambda: moe.apply_moe(p, x, cfg, impl=impl)  # noqa: E731
+                y, aux = call()
+                out[label] = dict(y=y, aux=aux, ms=cuda_ms(call, iters=5, warmup=1))
+    base = out["off-mesh"]
+    rows = {}
+    for impl in ("auto", "2d"):
+        r = out[impl]
+        equal = torch.equal(r["y"], base["y"]) and torch.equal(r["aux"], base["aux"])
+        err = float((r["y"].float() - base["y"].float()).abs().max())
+        log(f"  [{device_line}] apply_moe impl={impl!r} on the (1, 1) mesh: {r['ms']:.4f} ms "
+            f"(CUDA events, 5 calls; off the mesh {base['ms']:.4f} ms); y and aux bit-equal to "
+            f"the off-mesh branch: {equal} (max|dy| = {err:.3e})")
+        assert equal, f"impl={impl} on a group of one differs from the off-mesh branch: {err}"
+        rows[impl] = dict(ms=r["ms"], bit_equal=equal, max_abs_err=err)
+    assert bool(torch.isfinite(base["y"].float()).all()) and base["y"].shape == x.shape
+    rows["off-mesh"] = dict(ms=base["ms"])
+    del p, out, base
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1611,7 +1785,24 @@ def main() -> int:
     log(f"phase 30: {EXAMPLE.relative_to(ROOT)}")
     phase_example()
 
-    log("phase 31: results")
+    # the multi-device path on the one card: a NCCL group of one, a (1, 1) mesh
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_host_mesh()
+            assert mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1), mesh
+            log(f"phase 31: full-width qwen2.5-3b through the Megatron-SP blocks, (1, {SP_SEQ}) "
+                "fp32, on a NCCL group of one")
+            sp = phase_megatron_sp(mesh, device_line)
+            paths[f"qwen2.5-3b Megatron-SP train forward (1, {SP_SEQ}), NCCL group of one"] = sp
+            log(f"phase 32: deepseek-v2-236b MoE layer through the mesh branches, (1, {SP_SEQ})")
+            moe_mesh = phase_moe_mesh(mesh, device_line)
+        finally:
+            dist.destroy_process_group()
+
+    log("phase 33: results")
     kernels = []
     for name, source, replaces in (
             ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:30"),
@@ -1630,6 +1821,7 @@ def main() -> int:
     calibration = {k: v for k, v in calibration.items() if k != "path"}
     print(json.dumps({"attainable": attainable, "calibration": calibration,
                       "card_curves": card_curves, "device": device_line}))
+    print(json.dumps({"megatron_sp": sp, "moe_mesh": moe_mesh, "device": device_line}))
     print(json.dumps({"kernels": kernels}))
     print(device_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

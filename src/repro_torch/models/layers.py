@@ -4,8 +4,8 @@ embeddings, shared by the families of the unified model.
 
 Plain functions on tensors: each ``init_*`` builds params via a ParamBuilder
 (recording logical axes as metadata); each ``apply`` is a plain function.
-The reference's sharding constraints are dropped: the port runs on one
-device.
+The reference's ``shard`` annotations are left out: on the port's plain,
+rank-local tensors they are no-ops (``utils/sharding.py``).
 """
 
 from __future__ import annotations

@@ -20,6 +20,9 @@ over layers is a Python loop over layer slices, and the port runs
 eagerly. ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``), the reference's ``remat_policy = "full"``.
 Entry points run on the card unless the caller names another device.
+``moe_impl`` and ``block_impl`` choose, as in the reference, the MoE's
+expert parallelism and the dense blocks' Megatron-SP form
+(``models/smblock.py``) under logical rules on a mesh (``utils/sharding.py``).
 """
 
 from __future__ import annotations
@@ -35,8 +38,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
+from repro_torch.models import smblock as SMB
 from repro_torch.models import ssm as SSM
 from repro_torch.utils.params import ParamBuilder, count_params, layer_slices, stack_layers
+from repro_torch.utils.sharding import current_rules, mesh_shape
 
 def _init_dense_block(b: ParamBuilder, cfg: ModelConfig, use_moe: bool):
     L.init_norm(b, "ln1", cfg.d_model, cfg.norm)
@@ -118,6 +123,13 @@ class Model:
     def __init__(self, cfg: ModelConfig):
         cfg.validate()
         self.cfg = cfg
+        # MoE execution: "auto" = expert-parallel over the rules' expert axes
+        # (every expert local off the mesh); "2d" = weight-resident 2D expert
+        # parallelism (decode regime)
+        self.moe_impl = "auto"
+        # dense block execution: "gspmd" (the plain block) or "shardmap"
+        # (explicit Megatron-SP collectives over the rules' mesh; train path)
+        self.block_impl = "gspmd"
 
     # -- structure helpers --------------------------------------------------
 
@@ -224,11 +236,26 @@ class Model:
         x = x + attn_out
         h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
         if use_moe:
-            ffn_out, aux = MOE.apply_moe(p["ffn"], h, cfg)
+            ffn_out, aux = MOE.apply_moe(p["ffn"], h, cfg, impl=self.moe_impl)
         else:
             ffn_out = L.apply_mlp(p["ffn"], h, cfg)
             aux = torch.zeros((1,), dtype=torch.float32, device=x.device)
         return x + ffn_out, aux, (kv if collect_kv else None)
+
+    def _shardmap_mesh(self, S: int, *, use_moe: bool, collect: bool):
+        """The mesh to run a dense block on with ``smblock``, or None for the
+        plain block: under ``block_impl == "shardmap"``, for a non-MoE,
+        non-MLA block outside prefill whose sequence and heads divide the
+        model axis (the reference's condition; it needs active rules)."""
+        cfg = self.cfg
+        if self.block_impl != "shardmap" or use_moe or cfg.use_mla or collect:
+            return None
+        rules = current_rules()
+        assert rules is not None, "shardmap blocks need a mesh"
+        msize = mesh_shape(rules.mesh).get("model", 1)
+        if S % msize == 0 and cfg.num_heads % msize == 0:
+            return rules.mesh
+        return None
 
     def _hybrid_block(self, p, kind: str, x, positions, *, collect: bool):
         """One rec or attn block of the hybrid family; returns (x, state), the
@@ -363,7 +390,11 @@ class Model:
             stacks.append(("kv", "blocks", cfg.family == "moe"))
             for cache_name, stack, use_moe in stacks:
                 kvs = []
+                mesh = self._shardmap_mesh(S, use_moe=use_moe, collect=collect)
                 for p in layer_slices(params[stack]):
+                    if mesh is not None:
+                        x = block(SMB.dense_block_shardmap, p, x, cfg, mesh, window=window)
+                        continue
                     x, a, kv = block(self._dense_block, p, x, positions, window=window,
                                      use_moe=use_moe, collect_kv=collect)
                     aux_total = aux_total + a.mean()
@@ -572,7 +603,7 @@ class Model:
                 x = x + out
                 h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
                 if use_moe:
-                    f, _ = MOE.apply_moe(p["ffn"], h, cfg)
+                    f, _ = MOE.apply_moe(p["ffn"], h, cfg, impl=self.moe_impl)
                 else:
                     f = L.apply_mlp(p["ffn"], h, cfg)
                 x = x + f

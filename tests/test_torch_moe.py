@@ -206,8 +206,89 @@ def test_capacity_follows_reference(layer_pair, monkeypatch):
     assert seen["port"] == seen["ref"] == [_capacity(32, cfg), 4]
 
 
-def test_expert_parallel_impl_raises():
-    """The 2D expert parallelism needs a mesh, which the port has not."""
-    _, _, cfg, p = _pair("kimi-k2-1t-a32b", 0, **SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 16"):
+def test_2d_impl_without_rules_fails_as_reference():
+    """``impl="2d"`` needs logical rules on a mesh with a "model" axis: without
+    them it fails at the reference's ``assert``, in both packages."""
+    ref_cfg, ref_p, cfg, p = _pair("kimi-k2-1t-a32b", 0, **SMALL)
+    with pytest.raises(AssertionError):
+        REF_MOE.apply_moe(ref_p, jnp.zeros((1, 2, cfg.d_model)), ref_cfg, impl="2d")
+    with pytest.raises(AssertionError):
         MOE.apply_moe(p, torch.zeros(1, 2, cfg.d_model), cfg, impl="2d")
+    assert not hasattr(MOE, "_MESH_ITEM")
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism on 4 gloo ranks: a (2, 2) ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+#: y and aux against the reference's, its own sharded test's tolerance
+#: (tests/test_moe_sharded.py:58-59); the gradients at TOL
+EP_TOL = 2e-5
+
+
+@pytest.fixture(scope="module")
+def expert_parallel(tmp_path_factory):
+    """The reference's reduced kimi-k2 layer and x (2, 8, 64) from a seed;
+    its local (no-mesh) ``apply_moe`` with the gradients of sum(y * w) +
+    mean(aux) for each case's aux; and the port's ranks' results
+    (``torch_gloo_ranks.job_moe``)."""
+    from torch_gloo_ranks import MOE_CASES, MOE_CHANGES, Ranks, flatten
+
+    ref_cfg = dataclasses.replace(ref_get_config("kimi-k2-1t-a32b").reduced(), **MOE_CHANGES)
+    b = RefParamBuilder(jax.random.PRNGKey(0), dtype=jnp.float32)
+    REF_MOE.init_moe(b, "ffn", ref_cfg)
+    ref_p = b.build()[0]["ffn"]
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 8, ref_cfg.d_model)).astype(np.float32)
+    w = rng.standard_normal(x.shape).astype(np.float32)
+    d = tmp_path_factory.mktemp("moe_ranks")
+    np.savez(d / "in.npz", x=x, w=w, **{k: np.asarray(v) for k, v in flatten(ref_p, "p/").items()})
+    ranks = Ranks("moe", d)
+
+    T, E = x.shape[0] * x.shape[1], ref_cfg.num_experts
+    kw = dict(top_k=ref_cfg.top_k, e_lo=0, num_experts=E, e_local=E, axis_name=None)
+
+    def block_aux(p, x):
+        """The default rules' aux: the Switch loss of each data block of
+        tokens (the mesh branch's per-block ``_dispatch_compute``)."""
+        xf = x.reshape(T, -1)
+        cap = max(4, int(T // 2 * ref_cfg.top_k / E * ref_cfg.capacity_factor) + 1)
+        return jnp.concatenate([REF_MOE._dispatch_compute(
+            blk, p["router"], p["w_in"], p["w_out"], capacity=cap, **kw)[1]
+            for blk in jnp.split(xf, 2)])
+
+    want = {}
+    for name, _, _ in MOE_CASES:
+        def loss(p, x, name=name):
+            y, aux = REF_MOE.apply_moe(p, x, ref_cfg)
+            if name == "default":
+                aux = block_aux(p, x)
+            return jnp.sum(y * w) + aux.mean(), (y, aux)
+
+        (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1),
+                                                             has_aux=True))(ref_p, jnp.asarray(x))
+        want[name] = dict(y=y, aux=aux, grads={"x": gx, **gp})
+    return ranks.results(), want
+
+
+@pytest.mark.parametrize("case", ["default", "experts_data_model", "2d"])
+def test_expert_parallel_matches_reference(expert_parallel, case):
+    """On every rank: y within 2e-5 of the reference's local ``apply_moe``
+    (drop-free at capacity factor 16), aux within 2e-5 of the reference's
+    (per data block of tokens under the default rules, where the tokens are
+    cut on "data"; global where they are not), and every gradient of
+    sum(y * w) + mean(aux), x's included, within 1e-4."""
+    ranks, want = expert_parallel
+    for out in ranks:
+        _close(torch.from_numpy(out[f"{case}/y"]), want[case]["y"], EP_TOL)
+        _close(torch.from_numpy(out[f"{case}/aux"]), want[case]["aux"], EP_TOL)
+        for k, g in want[case]["grads"].items():
+            _close(torch.from_numpy(out[f"{case}/grad/{k}"]), g)
+
+
+def test_expert_parallel_matches_port_off_the_mesh(expert_parallel):
+    """Each case's y equals the port's own off-mesh ``apply_moe`` within 2e-5."""
+    ranks, _ = expert_parallel
+    for out in ranks:
+        for case in ("default", "experts_data_model", "2d"):
+            _close(torch.from_numpy(out[f"{case}/y"]), out["offmesh/y"], EP_TOL)
