@@ -120,9 +120,21 @@ Phases (any failure exits non-zero):
       shared) in bf16 at (1, 512) through the expert-parallel and the 2D
       mesh branches: bit-equal to the off-mesh branch (at a group of one
       every collective is the identity); then the group is destroyed
-  33. JSON lines of the training, MobileNetV2, kernel-tooling,
-      multi-device and kernel results, the card line, then the device line
-      last
+  33. the dry run (``launch/dryrun.py``) on the production meshes, each in
+      a process of its own with no CUDA device: qwen2.5-3b train_4k on the
+      16x16 mesh (256 ranks) and deepseek-v2-236b decode_32k on the
+      2x16x16 mesh (512 ranks, the kv_seq override, rolled accounting);
+      every record ok, with FLOPs and collective bytes; then the roofline
+      table over the records (data-sheet arithmetic, not measured time)
+  34. the dry run's counting layer against the card: full-width qwen2.5-3b
+      bf16 prefill (2, 512) counted with no mesh on CPU fake tensors (in a
+      process of its own), then run on the card: the counted argument bytes
+      equal the card's parameter and batch bytes, and the card's device
+      time is at least the compute term; measured / compute term and
+      measured / memory term
+  35. JSON lines of the training, MobileNetV2, kernel-tooling,
+      multi-device, dry-run and kernel results, the card line, then the
+      device line last
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -203,6 +215,34 @@ ATTAIN_GEMM_N = 8192             # the bf16 GEMM of the attainable-rate phase, N
 ATTAIN_COPY_BYTES = 2 ** 30      # the streaming copy of the attainable-rate phase
 CURVES_REQUESTS = 200            # requests per run on the card's curves
 SP_SEQ = 512                     # tokens of the multi-device phases' (1, S) inputs
+#: phase 33's dry runs: (arch, shape, the CLI's further flags); each traces
+#: on CPU fake tensors as rank 0 of a fake group of 256 or 512 ranks
+DRYRUN_CASES = (("qwen2.5-3b", "train_4k", ()),
+                ("deepseek-v2-236b", "decode_32k", ("--multi-pod", "--accounting", "rolled")))
+#: each dry-run subprocess's own time limit, s (the CPU times are in PERF.md)
+DRYRUN_TIMEOUT_S = 300
+#: phase 34: full-width qwen2.5-3b bf16 prefill at the smoke's (2, 512)
+COUNT_BATCH, COUNT_SEQ = 2, 512
+#: phase 34's counting layer in a process of its own (no CUDA device, no
+#: process group): one prefill of ``arch`` at (batch, seq) on CPU fake
+#: tensors, no mesh; prints its counts as JSON
+COUNT_PREFILL = """
+import json, sys, torch
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import count_step
+from repro_torch.models.model import Model
+from repro_torch.utils.hlo import op_histogram
+arch, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+model = Model(get_config(arch))
+params, _ = model.init(device="meta")
+tokens = torch.empty((batch, seq), dtype=torch.int32, device="meta")
+@torch.no_grad()
+def prefill(p, b):
+    return model.forward(p, b, mode="prefill")[0]
+c = count_step(prefill, (params, {"tokens": tokens}))
+print(json.dumps(dict(flops=c["flops"], bytes=c["bytes"], memory=c["memory"],
+                      trace_s=c["trace_s"], hlo_ops=op_histogram(c["ops"]))))
+"""
 CALIBRATE = ROOT / "scripts" / "calibrate_costmodel_torch.py"
 EXAMPLE = ROOT / "examples" / "partition_transformer_torch.py"
 #: the kernels' wrappers, whose ``launches`` count their kernel launches
@@ -1703,6 +1743,117 @@ def phase_moe_mesh(mesh, device_line: str) -> dict:
     return rows
 
 
+def subprocess_env() -> dict:
+    """The environment of the dry run's processes: the checkout's sources,
+    and no CUDA device to see (the dry run touches none)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT / "src"),
+                                                      env.get("PYTHONPATH")]))
+    return env
+
+
+def run_logged(cmd: list, timeout: float) -> str:
+    """Run ``cmd`` from the checkout with ``subprocess_env``; its stdout
+    lines go to the log. Fails on a non-zero exit or on the time limit (the
+    process is killed)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=subprocess_env(), capture_output=True, text=True,
+                          timeout=timeout)
+    for line in proc.stdout.splitlines():
+        log(f"    {line}")
+    if proc.returncode:
+        log(proc.stderr[-4000:])
+        raise RuntimeError(f"{' '.join(cmd[1:4])} exited {proc.returncode}")
+    log(f"  ({time.perf_counter() - t0:.1f} s of {timeout} s allowed)")
+    return proc.stdout
+
+
+def phase_dryrun(out_dir: pathlib.Path) -> dict:
+    """``launch/dryrun.py`` on the production meshes (``DRYRUN_CASES``), each
+    in a process of its own (this process's default group may be NCCL's),
+    then ``launch/roofline.py`` over the records, both meshes. Every record
+    must be ``ok``, with FLOPs and, on a mesh, collective bytes."""
+    seconds = {}
+    for arch, shape, flags in DRYRUN_CASES:
+        log(f"  python -m repro_torch.launch.dryrun --arch {arch} --shape {shape} "
+            f"{' '.join(flags)}")
+        t0 = time.perf_counter()
+        run_logged([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                    "--shape", shape, "--out", str(out_dir), *flags], DRYRUN_TIMEOUT_S)
+        seconds[f"{arch} {shape}"] = time.perf_counter() - t0
+    records = {}
+    for path in sorted(out_dir.glob("*.json")):
+        rec = json.loads(path.read_text())
+        assert rec["status"] == "ok", (path.name, rec.get("error"))
+        assert rec["flops_per_device"] > 0, (path.name, rec["flops_per_device"])
+        assert rec["chips"] > 1 and rec["collective_bytes_per_device"] > 0, (
+            path.name, rec["chips"], rec["collective_bytes_per_device"])
+        records[path.stem] = {k: rec[k] for k in (
+            "chips", "flops_per_device", "bytes_per_device", "collective_bytes_per_device",
+            "collective_counts", "memory", "roofline", "lower_s")}
+    assert len(records) == len(DRYRUN_CASES), sorted(records)
+    tables = {}
+    for pod2 in (False, True):
+        log(f"  python -m repro_torch.launch.roofline --markdown{' --pod2' if pod2 else ''} "
+            "(data-sheet arithmetic for 256 or 512 H100s, not measured time)")
+        tables["pod2" if pod2 else "pod1"] = run_logged(
+            [sys.executable, "-m", "repro_torch.launch.roofline", "--dir", str(out_dir),
+             "--markdown"] + (["--pod2"] if pod2 else []), 120)
+    return dict(records=records, seconds=seconds, tables=tables)
+
+
+def phase_counts(device_line: str) -> dict:
+    """The counting layer against the card: full-width qwen2.5-3b bf16
+    prefill at (COUNT_BATCH, COUNT_SEQ), counted with no mesh on CPU fake
+    tensors in a process of its own, then run on the card. The counted
+    argument bytes must be the card's parameter and batch bytes exactly, and
+    the card's device time at least the compute term (FLOPs over
+    GPU_PEAK_FLOPS): a count that claims more work than the card can do in
+    the time it took is wrong."""
+    arch = "qwen2.5-3b"
+    cfg = get_config(arch)
+    counted = json.loads(run_logged(
+        [sys.executable, "-c", COUNT_PREFILL, arch, str(COUNT_BATCH), str(COUNT_SEQ)],
+        DRYRUN_TIMEOUT_S).splitlines()[-1])
+    model = Model(cfg)
+    params, _ = model.init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (COUNT_BATCH, COUNT_SEQ), generator=g,
+                           device="cuda", dtype=torch.int32)
+    batch = {"tokens": tokens}
+    card_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    card_bytes += tokens.numel() * tokens.element_size()
+    assert counted["memory"]["argument_bytes"] == card_bytes, (counted["memory"], card_bytes)
+
+    def prefill():
+        with torch.no_grad():
+            return model.forward(params, batch, mode="prefill")[0]
+
+    events_ms = cuda_ms(prefill, iters=5)
+    prof = profile_call(prefill, f"one prefill ({COUNT_BATCH}, {COUNT_SEQ})", device_line)
+    compute_ms = counted["flops"] / PEAK_BF16_FLOPS * 1e3
+    memory_ms = counted["bytes"] / HBM_BYTES_PER_S * 1e3
+    busy_ms = prof.get("busy_ms")
+    measured_ms = busy_ms if busy_ms else events_ms
+    out = dict(flops=counted["flops"], bytes=counted["bytes"], memory=counted["memory"],
+               hlo_ops=counted["hlo_ops"], trace_s=counted["trace_s"],
+               card_argument_bytes=card_bytes, events_ms=events_ms, busy_ms=busy_ms,
+               compute_term_ms=compute_ms, memory_term_ms=memory_ms,
+               measured_over_compute=measured_ms / compute_ms,
+               measured_over_memory=measured_ms / memory_ms, device=device_line)
+    log(f"  counted: {counted['flops']:.6e} FLOPs, {counted['bytes']:.6e} bytes, "
+        f"{counted['hlo_ops'].get('fusion', 0)} launches, argument bytes "
+        f"{counted['memory']['argument_bytes']} = the card's {card_bytes}")
+    log(f"  [{device_line}] prefill {events_ms:.4f} ms (CUDA events, 5 calls), device busy "
+        f"{busy_ms} ms; compute term {compute_ms:.4f} ms, memory term {memory_ms:.4f} ms; "
+        f"measured / compute term {out['measured_over_compute']:.4f}, measured / memory term "
+        f"{out['measured_over_memory']:.4f} ({'busy' if busy_ms else 'events'})")
+    assert measured_ms >= compute_ms, (measured_ms, compute_ms)
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1802,7 +1953,14 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
 
-    log("phase 33: results")
+    with tempfile.TemporaryDirectory() as records:
+        log("phase 33: the dry run on the production meshes (fake groups of 256 and 512 ranks)")
+        dryrun = phase_dryrun(pathlib.Path(records))
+    log("phase 34: the dry run's counts against the card, full-width qwen2.5-3b prefill "
+        f"({COUNT_BATCH}, {COUNT_SEQ})")
+    counts = phase_counts(device_line)
+
+    log("phase 35: results")
     kernels = []
     for name, source, replaces in (
             ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:30"),
@@ -1822,6 +1980,7 @@ def main() -> int:
     print(json.dumps({"attainable": attainable, "calibration": calibration,
                       "card_curves": card_curves, "device": device_line}))
     print(json.dumps({"megatron_sp": sp, "moe_mesh": moe_mesh, "device": device_line}))
+    print(json.dumps({"dryrun": dryrun, "counts": counts, "device": device_line}))
     print(json.dumps({"kernels": kernels}))
     print(device_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,10 @@
   - "cuda": the Hopper kernel; raises on a tensor that is not on a CUDA
     device.
 
+An entry point called with no ``impl`` takes the process-wide default that
+``set_default_impl`` sets (none: "auto"). The dry run sets "torch", the
+counterpart of the reference lowering "xla" off the TPU.
+
 The models call these entry points exclusively, so swapping execution paths
 never touches model code.
 """
@@ -26,6 +30,22 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
+
+
+_DEFAULT_IMPL: Optional[str] = None   # overridable process-wide (tests / the dry run)
+
+
+def set_default_impl(impl: Optional[str]) -> None:
+    """The ``impl`` every entry point takes when its caller names none
+    (None restores "auto")."""
+    global _DEFAULT_IMPL
+    if impl not in (None, "auto", "torch", "cuda"):
+        raise ValueError(f"unknown impl {impl!r}")
+    _DEFAULT_IMPL = impl
+
+
+def _resolve(impl: Optional[str]) -> str:
+    return impl or _DEFAULT_IMPL or "auto"
 
 
 def _check_kernel_impl(impl: str, op: str, t: torch.Tensor) -> None:
@@ -48,9 +68,10 @@ def attention(
     causal: bool = True,
     window: int = 0,
     scale: Optional[float] = None,
-    impl: str = "auto",
+    impl: Optional[str] = None,
 ) -> torch.Tensor:
     """Self-attention over aligned q/k/v (prefill & training)."""
+    impl = _resolve(impl)
     if impl == "torch":
         return ref.attention_chunked(q, k, v, causal=causal, window=window, scale=scale)
     _check_kernel_impl(impl, "attention", q)
@@ -97,9 +118,10 @@ def ssd(
     c_mat: torch.Tensor,
     *,
     chunk: int = 256,
-    impl: str = "auto",
+    impl: Optional[str] = None,
 ):
     """Chunked SSD scan; returns (y, final_state)."""
+    impl = _resolve(impl)
     if impl == "torch":
         return ref.ssd_chunked_ref(x, dt, a, b_mat, c_mat, chunk)
     _check_kernel_impl(impl, "ssd", x)
@@ -136,12 +158,13 @@ def ssd_decode_step(
 # ---------------------------------------------------------------------------
 
 def rglru(a: torch.Tensor, b: torch.Tensor, *, chunk: int = 256,
-          impl: str = "auto") -> torch.Tensor:
+          impl: Optional[str] = None) -> torch.Tensor:
     """Gated linear recurrence h_t = a_t h_{t-1} + b_t over (B, L, W).
 
     ``chunk`` is the reference's Pallas chunk, kept for its signature; the
     Hopper kernel walks any L without chunking.
     """
+    impl = _resolve(impl)
     if impl == "torch":
         return ref.rglru_ref(a, b)
     _check_kernel_impl(impl, "rglru", a)

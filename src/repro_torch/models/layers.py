@@ -4,8 +4,23 @@ embeddings, shared by the families of the unified model.
 
 Plain functions on tensors: each ``init_*`` builds params via a ParamBuilder
 (recording logical axes as metadata); each ``apply`` is a plain function.
-The reference's ``shard`` annotations are left out: on the port's plain,
-rank-local tensors they are no-ops (``utils/sharding.py``).
+The reference's ``shard`` annotations sit where the reference has them:
+without logical rules they are no-ops, and under rules on a mesh they
+redistribute a DTensor (``utils/sharding.py``).
+
+The models reach the kernels' entry points (``kernels/ops.py``, a device
+dispatcher) through ``attention``, ``decode_attention`` and ``ssd`` here.
+Under logical rules on a mesh these run DTensors rank by rank (a
+``shard_map`` over the rules' axes), the split GSPMD makes of the
+reference's ops: ``attention`` and ``ssd`` on each rank's batch rows and
+heads, with no collective (each rank's query heads read their own kv
+heads); ``decode_attention`` on each rank's batch rows and, where the rules
+shard the cache's sequence ("kv_seq"), on its block of the cache, whose
+softmax is completed by a max and two sums over those mesh axes. DTensor
+itself cannot run the plain paths' batched products there (torch 2.11
+cannot flatten the batch and head dimensions that two mesh axes shard).
+The cross attention, the embedding lookup and the loss's logsumexp and
+gold logit are split the same way below.
 """
 
 from __future__ import annotations
@@ -17,8 +32,122 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.utils.params import ParamBuilder
+from repro_torch.utils.sharding import (P, axis_names, block_index, current_rules, fit_spec,
+                                        mesh_shape, pmax, psum, shard, shard_map)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' entry points, rank by rank under logical rules
+# ---------------------------------------------------------------------------
+
+def on_mesh(t: torch.Tensor) -> bool:
+    """A DTensor under logical rules: the entry points then run rank by rank."""
+    return hasattr(t, "placements") and current_rules() is not None
+
+
+def rank_spec(logical, shape) -> P:
+    """The rules' spec for logical axes, fit to ``shape`` (``fit_spec``)."""
+    rules = current_rules()
+    return fit_spec(rules.to_spec(logical), shape, rules.mesh)
+
+
+def local_kv_heads(kv: torch.Tensor, hq: int, heads_entry, mesh) -> torch.Tensor:
+    """The kv heads (dim 1 of ``kv``, which holds them all) that this rank's
+    block of the ``hq`` query heads reads, the query heads split over
+    ``heads_entry``'s mesh axes (None: ``kv`` as it is)."""
+    axes = axis_names(heads_entry)
+    if not axes:
+        return kv
+    h = hq // math.prod(mesh_shape(mesh)[a] for a in axes)
+    first = block_index(mesh, axes) * h
+    heads = torch.arange(first, first + h, device=kv.device) // (hq // kv.shape[1])
+    return kv.index_select(1, heads)
+
+
+def by_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v)`` of DTensors q (B, H, S, D) and k, v (B, Hkv, M, *),
+    each rank on its batch rows and query heads with the kv heads those
+    read (k and v split as q where Hkv = H); no collective."""
+    mesh = current_rules().mesh
+    hq = q.shape[1]
+    qspec = rank_spec(("batch", "heads", None, None), q.shape)
+    same = k.shape[1] == hq
+    kvspec = qspec if same else P(qspec[0], None, None, None)
+
+    def body(ql, kl, vl):
+        if not same:
+            kl, vl = (local_kv_heads(t, hq, qspec[1], mesh) for t in (kl, vl))
+        return fn(ql, kl, vl)
+
+    return shard_map(body, mesh, in_specs=(qspec, kvspec, kvspec), out_specs=qspec)(q, k, v)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -> torch.Tensor:
+    """``ops.attention``; rank by rank on DTensors under logical rules."""
+    if on_mesh(q):
+        return by_heads(lambda ql, kl, vl: ops.attention(ql, kl, vl, **kw), q, k, v)
+    return ops.attention(q, k, v, **kw)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     length_mask: torch.Tensor) -> torch.Tensor:
+    """``ops.decode_attention``; on DTensors under logical rules, each rank
+    on its batch rows and its block of the cache's sequence (all the query
+    heads, where "kv_seq" takes the mesh axes of "heads"), else its block of
+    the heads."""
+    if not on_mesh(q):
+        return ops.decode_attention(q, k_cache, v_cache, length_mask)
+    mesh = current_rules().mesh
+    cspec = rank_spec(("batch", None, "kv_seq", None), k_cache.shape)
+    seq_axes = axis_names(cspec[2])
+    heads = tuple(a for a in axis_names(rank_spec((None, "heads"), q.shape[:2])[1])
+                  if a not in seq_axes)
+    qspec = P(cspec[0], heads or None, None, None)
+    hq = q.shape[1]
+
+    def body(ql, kl, vl, ml):
+        kl, vl = (local_kv_heads(t, hq, qspec[1], mesh) for t in (kl, vl))
+        if not seq_axes:
+            return ops.decode_attention(ql, kl, vl, ml)
+        return _decode_attention_seq_block(ql, kl, vl, ml, mesh, seq_axes)
+
+    return shard_map(body, mesh, in_specs=(qspec, cspec, cspec, P(cspec[0], cspec[2])),
+                     out_specs=qspec)(q, k_cache, v_cache, length_mask)
+
+
+def _decode_attention_seq_block(q, k_cache, v_cache, length_mask, mesh, seq_axes):
+    """``ops.decode_attention`` of this rank's block of the cache's
+    sequence, the softmax completed over the mesh axes ``seq_axes``."""
+    b, hq, _, d = q.shape
+    hkv = k_cache.shape[1]
+    qg = q.reshape(b, hkv, hq // hkv, d)
+    s = torch.einsum("bgrd,bgsd->bgrs", qg.float(), k_cache.float()) / math.sqrt(d)
+    s = torch.where(length_mask[:, None, None, :], s,
+                    torch.tensor(ref.NEG_INF, dtype=s.dtype, device=s.device))
+    e = torch.exp(s - pmax(s.amax(dim=-1, keepdim=True), mesh, seq_axes))
+    o = (psum(torch.einsum("bgrs,bgsd->bgrd", e, v_cache.float()), mesh, seq_axes)
+         / psum(e.sum(dim=-1, keepdim=True), mesh, seq_axes))
+    return o.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def ssd(x, dt, a, b_mat, c_mat, *, chunk: int):
+    """``ops.ssd``; on DTensors under logical rules, each rank on its batch
+    rows and heads. Grouped B/C (1 < G < H) are repeated to the heads first
+    there, so that each rank's heads read their own groups."""
+    if not on_mesh(x):
+        return ops.ssd(x, dt, a, b_mat, c_mat, chunk=chunk)
+    mesh = current_rules().mesh
+    xspec = rank_spec(("batch", None, "heads", None), x.shape)
+    bt, hd = xspec[0], xspec[2]
+    H, G = x.shape[2], b_mat.shape[2]
+    if hd is not None and 1 < G < H:
+        b_mat, c_mat = (torch.repeat_interleave(m, H // G, dim=2) for m in (b_mat, c_mat))
+    gspec = P(bt, None, hd if b_mat.shape[2] == H else None, None)
+    return shard_map(lambda *t: ops.ssd(*t, chunk=chunk), mesh,
+                     in_specs=(xspec, P(bt, None, hd), P(hd), gspec, gspec),
+                     out_specs=(xspec, P(bt, hd, None, None)))(x, dt, a, b_mat, c_mat)
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +229,7 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = (x @ p["w_up"]) * act(x @ p["w_gate"])
     else:
         h = _gelu(x @ p["w_in"])
+    h = shard(h, "batch", None, "ff")
     return h @ p["w_out"]
 
 
@@ -133,8 +263,17 @@ def _project_qkv(p, x, cfg: ModelConfig, nh: int, nkv: int):
         q = q + p["b_q"]
         k = k + p["b_k"]
         v = v + p["b_v"]
-    return (q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd),
-            v.reshape(B, S, nkv, hd))
+    return (_split_heads(q, nh, hd), _split_heads(k, nkv, hd), _split_heads(v, nkv, hd))
+
+
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd). A DTensor whose last dimension is
+    split over mesh axes that ``n`` heads do not divide (qwen2-7b's 28 over
+    16) is gathered on that dimension first: DTensor cannot split a block
+    across heads, where GSPMD reshards."""
+    if on_mesh(t) and rank_spec(("batch", None, "heads"), t.shape[:2] + (n,))[2] is None:
+        t = shard(t, "batch", None, None)
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
 
 
 def apply_attention(
@@ -154,11 +293,13 @@ def apply_attention(
     q, k, v = _project_qkv(p, x, cfg, nh, nkv)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+    q = shard(q, "batch", None, "heads", None)
     qh = q.transpose(1, 2)
     kh = k.transpose(1, 2)
     vh = v.transpose(1, 2)
-    o = ops.attention(qh, kh, vh, causal=causal, window=window)
+    o = attention(qh, kh, vh, causal=causal, window=window)
     o = o.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
+    o = shard(o, "batch", None, "heads")
     return o @ p["w_o"], (kh, vh)
 
 
@@ -238,7 +379,7 @@ def apply_attention_decode(
     else:
         valid = idx <= pos
     mask = valid[None, :].expand(B, s_cache)
-    o = ops.decode_attention(qh, k_use, v_use, mask)
+    o = decode_attention(qh, k_use, v_use, mask)
     o = o.transpose(1, 2).reshape(B, 1, nh * hd)
     out = o @ p["w_o"]
     if cache_scales is not None:
@@ -277,6 +418,17 @@ def cross_kv(p, memory: torch.Tensor, cfg: ModelConfig):
     return k, v
 
 
+def _cross_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain attention of q (B, H, S, hd) over memory k, v (B, Hkv, M, hd):
+    fp32 scores and softmax, output in q's dtype."""
+    rep = q.shape[1] // k.shape[1]
+    kf = torch.repeat_interleave(k.float(), rep, dim=1)
+    vf = torch.repeat_interleave(v.float(), rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / math.sqrt(q.shape[-1])
+    pw = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", pw, vf).to(q.dtype)
+
+
 def apply_cross_attention(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, D) queries; k/v: (B, Hkv, M, hd) precomputed memory KV.
@@ -287,17 +439,15 @@ def apply_cross_attention(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, _ = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim_
     q = (x @ p["w_q"]).reshape(B, S, nh, hd).transpose(1, 2)
+    q = shard(q, "batch", "heads", None, None)
     M = k.shape[2]
     if S == 1:
         mask = torch.ones((B, M), dtype=torch.bool, device=x.device)
-        o = ops.decode_attention(q, k, v, mask)
+        o = decode_attention(q, k, v, mask)
+    elif on_mesh(q):
+        o = by_heads(_cross_scores, q, k, v)
     else:
-        rep = nh // k.shape[1]
-        kf = torch.repeat_interleave(k.float(), rep, dim=1)
-        vf = torch.repeat_interleave(v.float(), rep, dim=1)
-        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / math.sqrt(hd)
-        pw = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhqk,bhkd->bhqd", pw, vf).to(x.dtype)
+        o = _cross_scores(q, k, v)
     o = o.transpose(1, 2).reshape(B, S, nh * hd)
     out = o @ p["w_o"]
     if "gate" in p:
@@ -316,7 +466,57 @@ def init_embed(b: ParamBuilder, cfg: ModelConfig):
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"].to(cfg.torch_dtype)[tokens]
+    w = params["embed"].to(cfg.torch_dtype)
+    if on_mesh(w):
+        x = _by_vocab_block(lambda wl, i: wl[i], w, ("vocab", None), tokens)
+    else:
+        x = w[tokens]
+    return shard(x, "batch", None, None)
+
+
+def _by_vocab_block(lookup, table, vocab_spec: tuple, ids: torch.Tensor) -> torch.Tensor:
+    """``lookup(table_block, local_ids)`` on each rank's block of a DTensor
+    ``table`` sharded over the vocabulary (``vocab_spec``: its logical
+    axes), for DTensor ``ids`` (batch-sharded token ids; the output keeps
+    their batch axes and adds one trailing dimension): the ids outside the
+    rank's block look up zeros, and a sum over the vocabulary's mesh axes
+    completes each entry, as GSPMD splits the reference's gathers. DTensor's
+    own sharded gathers fail or gather the batch (a partial gradient it
+    cannot turn into its masked partial; a batch all-gather of the logits)."""
+    mesh = current_rules().mesh
+    tspec = rank_spec(vocab_spec, table.shape)
+    ispec = rank_spec(("batch",) + (None,) * (ids.dim() - 1), ids.shape)
+    vdim = vocab_spec.index("vocab")
+    axes = axis_names(tspec[vdim])
+
+    def body(tl, il):
+        local = il.long() - block_index(mesh, axes) * tl.shape[vdim]
+        hit = (local >= 0) & (local < tl.shape[vdim])
+        out = lookup(tl, torch.where(hit, local, torch.zeros_like(local)))
+        out = out * hit[..., None].to(out.dtype)
+        return psum(out, mesh, axes) if axes else out
+
+    out_spec = P(*ispec, *([None] * (ids.dim() + 1 - len(ispec))))
+    return shard_map(body, mesh, in_specs=(tspec, ispec), out_specs=out_spec)(table, ids)
+
+
+def log_partition(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the vocabulary, as (B, S, 1). On DTensors under
+    logical rules it is written out (a max and a sum, each reduced over the
+    vocabulary's mesh axes): DTensor's own logsumexp all-gathers the batch."""
+    if on_mesh(logits):
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        return m + torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))
+    return torch.logsumexp(logits, dim=-1, keepdim=True)
+
+
+def gold_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]`` as (B, S, 1): the labels' logits for the loss
+    (vocabulary-parallel on DTensors under logical rules)."""
+    if on_mesh(logits):
+        return _by_vocab_block(lambda lg, i: torch.gather(lg, -1, i[..., None]),
+                               logits, ("batch", None, "vocab"), labels)
+    return torch.gather(logits, -1, labels[..., None].long())
 
 
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -326,4 +526,4 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         pad_mask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = torch.where(pad_mask, logits,
                              torch.tensor(-1e30, dtype=logits.dtype, device=x.device))
-    return logits
+    return shard(logits, "batch", None, "vocab")

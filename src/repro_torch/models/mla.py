@@ -17,9 +17,10 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops, ref
-from repro_torch.models.layers import apply_rope
+from repro_torch.kernels import ref
+from repro_torch.models.layers import apply_rope, attention
 from repro_torch.utils.params import ParamBuilder
+from repro_torch.utils.sharding import shard
 
 
 def init_mla(b: ParamBuilder, name: str, cfg: ModelConfig):
@@ -84,11 +85,14 @@ def apply_mla(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     v = (c_kv @ p["w_uv"]).reshape(B, S, H, vd)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rdim)], dim=-1)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "heads", None)
     # (B, H, S, D) views of the (B, S, H, D) tensors: the kernel reads them
     # strided, and its output is a view of a (B, S, H, Dv) allocation
-    o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+    o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                       causal=True, scale=1.0 / math.sqrt(nope + rdim))
     o = o.transpose(1, 2).reshape(B, S, H * vd)
+    o = shard(o, "batch", None, "heads")
     return o @ p["w_o"], (c_kv, k_rope)
 
 

@@ -10,6 +10,7 @@ One ``Model`` object per ``ModelConfig`` exposes, as the reference does:
   init_cache(batch, cache_len, device, memory_len) -> (cache, cache_specs)
   fill_cross_cache(params, cache, memory) -> cache   (audio and VLM)
   decode_step(params, token, cache)  -> (logits, cache)
+  input_specs(shape_name)            -> the step's inputs as meta tensors
 
 Parameters keep the reference's tree, with the layers stacked on a leading
 axis under ``"blocks"`` (the MoE family's leading dense layers under
@@ -18,7 +19,7 @@ hybrid and VLM families: repeating super-blocks under ``"super"``, and the
 hybrid's leftover layers as ``"tail{t}"``); the reference's ``lax.scan``
 over layers is a Python loop over layer slices, and the port runs
 eagerly. ``remat`` recomputes each block in the backward
-(``torch.utils.checkpoint``), the reference's ``remat_policy = "full"``.
+(``torch.utils.checkpoint``) under ``remat_policy`` (see ``Model``).
 Entry points run on the card unless the caller names another device.
 ``moe_impl`` and ``block_impl`` choose, as in the reference, the MoE's
 expert parallelism and the dense blocks' Megatron-SP form
@@ -31,17 +32,19 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import INPUT_SHAPES, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import smblock as SMB
 from repro_torch.models import ssm as SSM
-from repro_torch.utils.params import ParamBuilder, count_params, layer_slices, stack_layers
-from repro_torch.utils.sharding import current_rules, mesh_shape
+from repro_torch.utils.params import (ParamBuilder, abstract_stack, count_params, layer_slices,
+                                      stack_layers)
+from repro_torch.utils.sharding import current_rules, mesh_shape, shard
 
 def _init_dense_block(b: ParamBuilder, cfg: ModelConfig, use_moe: bool):
     L.init_norm(b, "ln1", cfg.d_model, cfg.norm)
@@ -99,7 +102,12 @@ def _sinusoid(length: int, dim: int, device=None) -> torch.Tensor:
 
 
 def _stack_init(generator, n: int, fn, dtype, device):
-    """Build ``n`` identical blocks and stack along a leading layer axis."""
+    """Build ``n`` identical blocks and stack along a leading layer axis (on
+    the meta device, one block's shapes with the layer axis added)."""
+    if device.type == "meta":
+        b = ParamBuilder(None, dtype=dtype, device=device)
+        fn(b)
+        return abstract_stack(*b.build(), n)
     outs = []
     for _ in range(n):
         b = ParamBuilder(generator, dtype=dtype, device=device)
@@ -119,10 +127,45 @@ def _stack_states(states: list):
     return torch.stack(states)
 
 
+#: the output projections of a block's sublayers: what ``remat_policy =
+#: "outputs"`` keeps (the reference's ``blk_out``)
+_BLOCK_OUT_WEIGHTS = (("attn", "w_o"), ("ffn", "w_out"), ("ffn", "w_shared_out"))
+
+
+def _storage_key(t):
+    """The storage a tensor (or a DTensor's local shard) reads."""
+    return getattr(t, "_local_tensor", t).untyped_storage()._cdata
+
+
+def _save_block_outputs(p):
+    """A ``torch.utils.checkpoint`` context for one block that saves the ops
+    reading the block's output projections (``_BLOCK_OUT_WEIGHTS`` of ``p``;
+    a layer slice shares its stack's storage) and recomputes the rest."""
+    keys = {_storage_key(p[a][w]) for a, w in _BLOCK_OUT_WEIGHTS if a in p and w in p[a]}
+
+    def policy(ctx, op, *args, **kwargs):
+        if any(isinstance(a, torch.Tensor) and _storage_key(a) in keys for a in args):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
 class Model:
     def __init__(self, cfg: ModelConfig):
         cfg.validate()
         self.cfg = cfg
+        # remat policy under ``remat``: "full" recomputes each block whole in
+        # the backward; "outputs" keeps each block's attention and FFN
+        # outputs (the reference's ``blk_out``): a selective checkpoint
+        # (``create_selective_checkpoint_contexts``) saves the results of the
+        # ops that read the block's output projections (w_o, w_out, and the
+        # MoE's w_shared_out; the routed experts' w_out off the mesh) and
+        # recomputes everything else, so the backward skips the attention
+        # projection's forward (and, on a mesh, its all-reduce). The FFN's
+        # w_out product is recomputed under neither policy: torch's
+        # checkpoint stops recomputing before a block's last product.
+        self.remat_policy = "full"
         # MoE execution: "auto" = expert-parallel over the rules' expert axes
         # (every expert local off the mesh); "2d" = weight-resident 2D expert
         # parallelism (decode regime)
@@ -233,14 +276,17 @@ class Model:
         else:
             attn_out, kv = L.apply_attention(p["attn"], h, cfg, positions, causal=True,
                                              window=window)
-        x = x + attn_out
+        # under sequence-parallel rules this asks for a reduce-scatter at the
+        # out-projection instead of all-reduce + re-shard (no-op otherwise)
+        x = x + shard(attn_out, "batch", "seq", None)
         h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
         if use_moe:
             ffn_out, aux = MOE.apply_moe(p["ffn"], h, cfg, impl=self.moe_impl)
         else:
             ffn_out = L.apply_mlp(p["ffn"], h, cfg)
             aux = torch.zeros((1,), dtype=torch.float32, device=x.device)
-        return x + ffn_out, aux, (kv if collect_kv else None)
+        x = x + shard(ffn_out, "batch", "seq", None)
+        return shard(x, "batch", "seq", None), aux, (kv if collect_kv else None)
 
     def _shardmap_mesh(self, S: int, *, use_moe: bool, collect: bool):
         """The mesh to run a dense block on with ``smblock``, or None for the
@@ -280,7 +326,7 @@ class Model:
         out, kv = L.apply_attention(p["attn"], h, cfg, positions, causal=True)
         xk, xv = L.cross_kv(p["xattn"], memory, cfg)
         x = self._cross_and_ffn(p, "lnx", x + out, xk, xv)
-        return x, ((kv, (xk, xv)) if collect else None)
+        return shard(x, "batch", "seq", None), ((kv, (xk, xv)) if collect else None)
 
     def _vlm_super(self, p, x, positions, images, *, window, collect: bool):
         """One VLM super-block: ``cross_attn_every - 1`` dense self-attention
@@ -294,7 +340,7 @@ class Model:
                                                       collect_kv=collect)
         kvs["cross"] = L.cross_kv(p["cross"]["xattn"], images, cfg)
         x = self._cross_and_ffn(p["cross"], "ln1", x, *kvs["cross"])
-        return x, (kvs if collect else None)
+        return shard(x, "batch", "seq", None), (kvs if collect else None)
 
     def _cross_and_ffn(self, p, norm: str, x, xk, xv):
         """The cross-attention residual against memory K/V (its norm named
@@ -314,13 +360,14 @@ class Model:
         _, F, D = frames.shape
         dt = cfg.torch_dtype
         x = frames.to(dt) + _sinusoid(F, D, frames.device).to(dt)
+        x = shard(x, "batch", "seq", None)
         positions = torch.arange(F, device=frames.device)
         for p in layer_slices(params["enc_blocks"]):
             h = L.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
             out, _ = L.apply_attention(p["attn"], h, cfg, positions, causal=False)
             x = x + out
             h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
-            x = x + L.apply_mlp(p["ffn"], h, cfg)
+            x = shard(x + L.apply_mlp(p["ffn"], h, cfg), "batch", "seq", None)
         return L.apply_norm(params["enc_final_norm"], x, cfg.norm, cfg.norm_eps)
 
     def _clip_window_kv(self, kv, S: int):
@@ -380,10 +427,13 @@ class Model:
         collect = mode == "prefill"
         caches: Dict[str, Any] = {}
 
-        def block(fn, *args, **kwargs):
-            if remat:
-                return checkpoint(fn, *args, use_reentrant=False, **kwargs)
-            return fn(*args, **kwargs)
+        def block(fn, p, *args, **kwargs):
+            if not remat:
+                return fn(p, *args, **kwargs)
+            if self.remat_policy == "outputs":
+                return checkpoint(fn, p, *args, use_reentrant=False,
+                                  context_fn=lambda: _save_block_outputs(p), **kwargs)
+            return checkpoint(fn, p, *args, use_reentrant=False, **kwargs)
 
         if cfg.family in ("dense", "moe"):
             stacks = [("dense_kv", "dense_blocks", False)] if self._n_dense_first else []
@@ -433,6 +483,7 @@ class Model:
                 for j, kind in enumerate(self._pattern):
                     x, st_out[f"b{j}"] = block(self._hybrid_block, p[f"b{j}_{kind}"], kind, x,
                                                positions, collect=collect)
+                x = shard(x, "batch", "seq", None)
                 sup_states.append(st_out)
             if collect:
                 caches["super"] = _stack_states(sup_states)
@@ -460,9 +511,7 @@ class Model:
         logits, aux, _ = self.forward(params, {**batch, "tokens": tokens[:, :-1]},
                                       mode="train", remat=remat)
         logits = logits.float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, tokens[:, 1:, None].long())[..., 0]
-        nll = (logz - gold).mean()
+        nll = (L.log_partition(logits) - L.gold_logits(logits, tokens[:, 1:])).mean()
         return nll + cfg.router_aux_weight * aux, nll
 
     # -- decode -------------------------------------------------------------
@@ -719,6 +768,30 @@ class Model:
             for sfx, arr in nc.items():
                 new_cache[f"t{t}_{sfx}"] = arr
         return x
+
+    # -- input specs ---------------------------------------------------------
+
+    def input_specs(self, shape_name: str) -> Dict[str, torch.Tensor]:
+        """Meta-tensor stand-ins for the step functions' inputs at
+        ``INPUT_SHAPES[shape_name]``: int32 "tokens" (train: one longer, for
+        the shifted labels) or "token" (decode), and the audio family's
+        "frames" / the VLM's "images" outside decode."""
+        cfg = self.cfg
+        sh = INPUT_SHAPES[shape_name]
+        B, S, kind = sh["global_batch"], sh["seq_len"], sh["kind"]
+
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if kind == "decode":
+            out = {"token": meta((B,), torch.int32)}
+        else:
+            out = {"tokens": meta((B, S + 1 if kind == "train" else S), torch.int32)}
+        if cfg.family == "audio" and kind != "decode":
+            out["frames"] = meta((B, cfg.num_frames, cfg.d_model), cfg.torch_dtype)
+        if cfg.family == "vlm" and kind != "decode":
+            out["images"] = meta((B, cfg.num_image_tokens, cfg.d_model), cfg.torch_dtype)
+        return out
 
     def param_count(self, params=None) -> int:
         if params is None:

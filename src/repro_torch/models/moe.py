@@ -41,6 +41,14 @@ def init_moe(b: ParamBuilder, name: str, cfg: ModelConfig):
         sub.param("w_shared_out", (Fs, D), ("ff", None))
 
 
+def _expert_counts(expert, num_experts: int) -> torch.Tensor:
+    """fp32 assignments per expert: ``bincount`` with a static shape (exact:
+    counts of ones), so that a trace on fake tensors can run it."""
+    ones = torch.ones(expert.shape, dtype=torch.float32, device=expert.device)
+    return torch.zeros(num_experts, dtype=torch.float32,
+                       device=expert.device).index_add_(0, expert, ones)
+
+
 def _slot(key, e_local: int, capacity: int):
     """Sort the assignments by local expert (``e_local`` = the drop bucket);
     returns (order, slot): each sorted assignment's row in the (e_local *
@@ -100,7 +108,7 @@ def _dispatch_compute(x, router_w, w_in, w_out, *, top_k, e_lo, num_experts,
 
     # Switch-style load-balance aux: E * sum_e f_e * p_e, as per-token shares.
     # Uses global expert ids (identical across model shards; no psum needed).
-    me = torch.bincount(expert, minlength=num_experts).float() / (T * top_k)
+    me = _expert_counts(expert, num_experts) / (T * top_k)
     ce = probs.mean(dim=0)
     aux = (num_experts * torch.sum(me * ce)).expand(T)
     return y, aux
@@ -164,7 +172,7 @@ def apply_moe_2d(p, x: torch.Tensor, cfg: ModelConfig):
         y = psum(y, mesh, "model")                          # (T, D) full
         t_loc = T // dsize
         y_local = y[di * t_loc:(di + 1) * t_loc]
-        me = torch.bincount(expert, minlength=E).float() / (T * k)
+        me = _expert_counts(expert, E) / (T * k)
         aux = (E * torch.sum(me * probs.mean(dim=0))).expand(t_loc)
         return y_local, aux
 

@@ -16,6 +16,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import _gelu
 from repro_torch.models.ssm import _causal_depthwise
 from repro_torch.utils.params import ParamBuilder
+from repro_torch.utils.sharding import shard
 
 _C = 8.0  # RG-LRU decay sharpness constant (Griffin §2.4)
 _CONV_K = 4
@@ -62,7 +63,8 @@ def apply_rglru(p, x: torch.Tensor, cfg: ModelConfig, state=None):
         gated_in = torch.cat([gated_in[:, :1] + a[:, :1] * state["h"][:, None],
                               gated_in[:, 1:]], dim=1)
     hv = ops.rglru(a, gated_in)
-    out = (hv.to(x.dtype) * y_gate) @ p["w_out"]
+    h = shard(hv.to(x.dtype), "batch", None, "ff")
+    out = (h * y_gate) @ p["w_out"]
     return out, {"conv": new_conv, "h": hv[:, -1, :]}
 
 

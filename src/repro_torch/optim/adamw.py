@@ -42,9 +42,9 @@ class Optimizer(NamedTuple):
 def _slices(*tensors):
     """Matching views of same-shape tensors along their leading axis, each of
     at most ``_SLICE`` elements where rows allow (the whole tensor below two
-    dimensions)."""
+    dimensions, and a DTensor, which is its rank's shard already)."""
     t0 = tensors[0]
-    if t0.dim() < 2 or t0.numel() <= _SLICE:
+    if t0.dim() < 2 or t0.numel() <= _SLICE or hasattr(t0, "placements"):
         return [tensors]
     rows = max(1, _SLICE // (t0.numel() // t0.shape[0]))
     return zip(*(t.split(rows) for t in tensors))
@@ -56,6 +56,11 @@ def global_norm(tree) -> torch.Tensor:
         squares = [s.float().square().sum() for leaf in tree_leaves(tree)
                    for (s,) in _slices(leaf)]
         return torch.stack(squares).sum().sqrt()
+
+
+def opt_state_specs(param_specs) -> AdamWState:
+    """Logical-axes tree for AdamWState mirroring the params' specs."""
+    return AdamWState(step=(), mu=param_specs, nu=param_specs)
 
 
 def adamw(

@@ -110,6 +110,14 @@ def _prefix_specs(specs):
     return ("layers",) + tuple(specs)
 
 
+def abstract_stack(params, specs, num_layers: int):
+    """Add a leading layer axis to meta-tensor params without building each
+    layer; specs gain a leading "layers" entry."""
+    stacked = tree_map(lambda s: torch.empty((num_layers,) + tuple(s.shape), dtype=s.dtype,
+                                             device="meta"), params)
+    return stacked, _prefix_specs(specs)
+
+
 def layer_slices(tree) -> list:
     """Every layer of a layer-stacked tree, as views. One ``torch.unbind`` per
     leaf: its backward stacks the layers' gradients in one pass, where

@@ -10,9 +10,11 @@ A spec (:class:`PartitionSpec`, ``P``) holds one entry per tensor dimension:
 :func:`placements` gives its DTensor form, one placement per mesh dimension.
 
 :func:`shard_map` runs a per-rank body, the counterpart of the JAX
-``shard_map``: every input is cut to this rank's block, every output is
-all-gathered back to the whole tensor, and autograd carries the transposes
-across that boundary. Inside the body the collectives are
+``shard_map``. On whole tensors (the same on every rank) every input is cut
+to this rank's block and every output is all-gathered back to the whole
+tensor; on DTensors every input is redistributed to its spec and taken
+local, and every output comes back as a DTensor at its spec, with no cut
+and no gather. Autograd carries the transposes across that boundary. Inside the body the collectives are
 :func:`all_gather`, :func:`psum_scatter` and :func:`psum` (autograd-aware
 pairs: all-gather <-> reduce-scatter, all-reduce <-> all-reduce) and
 :func:`axis_index`.
@@ -89,7 +91,7 @@ DEFAULT_RULES: Mapping[str, Union[str, Tuple[str, ...], None]] = {
 }
 
 
-def _names(entry) -> Tuple[str, ...]:
+def axis_names(entry) -> Tuple[str, ...]:
     """The mesh axes of one spec entry, major first."""
     if entry is None:
         return ()
@@ -184,7 +186,7 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
     order = list(mesh.mesh_dim_names)
     by_axis = {}
     for d, entry in enumerate(spec):
-        names = _names(entry)
+        names = axis_names(entry)
         idx = [order.index(n) for n in names]
         if idx != sorted(idx):
             raise ValueError(f"spec entry {entry!r} is not in the mesh's axis order {order}: "
@@ -197,8 +199,10 @@ def shard(x: torch.Tensor, *axes: LogicalAxis) -> torch.Tensor:
     """Annotate ``x`` with logical axes; no-op when no rules are active.
 
     Under rules a DTensor is redistributed to the rules' placements (the
-    counterpart of ``with_sharding_constraint``); a plain tensor is this
-    rank's own and comes back unchanged."""
+    counterpart of ``with_sharding_constraint``), less the mesh axes that do
+    not divide their dimension (``fit_spec``: GSPMD pads an uneven block,
+    DTensor's views cannot split one); a plain tensor is this rank's own and
+    comes back unchanged."""
     rules = current_rules()
     if rules is None:
         return x
@@ -206,7 +210,8 @@ def shard(x: torch.Tensor, *axes: LogicalAxis) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
 
     if isinstance(x, DTensor):
-        return x.redistribute(rules.mesh, rules.sharding(axes).placements)
+        spec = fit_spec(rules.to_spec(axes), x.shape, rules.mesh)
+        return x.redistribute(rules.mesh, placements(spec, rules.mesh))
     return x
 
 
@@ -223,8 +228,11 @@ def _map_axes(fn, axes_tree, *trees, is_leaf=is_axes_leaf):
     if isinstance(axes_tree, dict):
         return {k: _map_axes(fn, v, *(t[k] for t in trees), is_leaf=is_leaf)
                 for k, v in axes_tree.items()}
-    return type(axes_tree)(_map_axes(fn, v, *(t[i] for t in trees), is_leaf=is_leaf)
-                           for i, v in enumerate(axes_tree))
+    items = [_map_axes(fn, v, *(t[i] for t in trees), is_leaf=is_leaf)
+             for i, v in enumerate(axes_tree)]
+    if hasattr(axes_tree, "_fields"):      # a NamedTuple (AdamWState)
+        return type(axes_tree)(*items)
+    return type(axes_tree)(items)
 
 
 def _is_tuple(a: Any) -> bool:
@@ -238,28 +246,51 @@ def spec_tree(axes_tree: Any) -> Any:
                      is_leaf=_is_tuple)
 
 
+def fit_spec(spec: PartitionSpec, shape, mesh) -> PartitionSpec:
+    """``spec`` without the mesh axes whose size does not divide their
+    dimension (a block must divide exactly), the axes before them kept."""
+    sizes = mesh_shape(mesh)
+    parts = []
+    for dim, entry in zip(shape, spec):
+        keep, size = [], 1
+        for nm in axis_names(entry):
+            if dim % (size * sizes[nm]) == 0:
+                keep.append(nm)
+                size *= sizes[nm]
+        parts.append(None if not keep else (keep[0] if len(keep) == 1 else tuple(keep)))
+    return P(*parts)
+
+
 def safe_sharding_tree(args_tree: Any, axes_tree: Any) -> Any:
     """NamedShardings of the tensors of ``args_tree``, dropping any mesh axis
     whose size does not divide the corresponding dimension (an input block
     must divide exactly, unlike an internal constraint)."""
     rules = current_rules()
     assert rules is not None
-    mesh = rules.mesh
-    sizes = mesh_shape(mesh)
+    return _map_axes(lambda axes, arg: NamedSharding(
+        rules.mesh, fit_spec(rules.to_spec(axes), arg.shape, rules.mesh)), axes_tree, args_tree)
 
-    def build(axes, arg):
-        spec = rules.to_spec(axes)
-        parts = []
-        for dim, entry in zip(arg.shape, spec):
-            keep, size = [], 1
-            for nm in _names(entry):
-                if dim % (size * sizes[nm]) == 0:
-                    keep.append(nm)
-                    size *= sizes[nm]
-            parts.append(None if not keep else (keep[0] if len(keep) == 1 else tuple(keep)))
-        return NamedSharding(mesh, P(*parts))
 
-    return _map_axes(build, axes_tree, args_tree)
+def distribute_abstract(args_tree: Any, shardings_tree: Any, device="cpu") -> Any:
+    """DTensors for the tensors of ``args_tree`` (meta tensors: shapes and
+    dtypes) under the NamedShardings of ``shardings_tree``
+    (``safe_sharding_tree``), as ``jax.jit(in_shardings=...)`` places its
+    arguments: each holds this rank's block, a new tensor on ``device``
+    (build under ``FakeTensorMode`` to allocate nothing)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    def build(sharding, arg):
+        pl = sharding.placements
+        local = list(arg.shape)
+        for p, n in zip(pl, sharding.mesh.shape):
+            if isinstance(p, Shard):
+                local[p.dim] //= n
+        block = torch.empty(local, dtype=arg.dtype, device=device)
+        return DTensor.from_local(block, sharding.mesh, pl, run_check=False,
+                                  shape=arg.shape, stride=torch.empty(arg.shape, device="meta").stride())
+
+    return _map_axes(build, shardings_tree, args_tree,
+                     is_leaf=lambda a: isinstance(a, NamedSharding))
 
 
 def sharding_tree(axes_tree: Any) -> Any:
@@ -281,6 +312,15 @@ _GROUPS: dict = {}
 def axis_index(mesh, axis: str) -> int:
     """This rank's coordinate along ``axis``."""
     return mesh.get_local_rank(axis)
+
+
+def block_index(mesh, axes) -> int:
+    """This rank's block along a dimension split over ``axes``, major first
+    (as JAX tiles it)."""
+    sizes, idx = mesh_shape(mesh), 0
+    for a in _axes(axes):
+        idx = idx * sizes[a] + axis_index(mesh, a)
+    return idx
 
 
 def _axes(axes) -> Tuple[str, ...]:
@@ -339,14 +379,14 @@ def _scatter_along(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
-def _all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, mesh, axes, op=None) -> torch.Tensor:
     import torch.distributed as dist
 
     axes = _axes(axes)
     if not axes or math.prod(mesh_shape(mesh)[a] for a in axes) == 1:
         return x
     out = x.contiguous().clone()
-    dist.all_reduce(out, group=axis_group(mesh, axes))
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=axis_group(mesh, axes))
     return out
 
 
@@ -402,6 +442,13 @@ def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return _Psum.apply(x, mesh, _axes(axes))
 
 
+def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``jax.lax.pmax(x, axes)``, carrying no gradient."""
+    import torch.distributed as dist
+
+    return _all_reduce(x.detach(), mesh, axes, op=dist.ReduceOp.MAX)
+
+
 # ---------------------------------------------------------------------------
 # the shard_map boundary
 # ---------------------------------------------------------------------------
@@ -413,7 +460,7 @@ def local_block(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     sizes = mesh_shape(mesh)
     for d, entry in enumerate(_entries(spec, x.ndim)):
         n, idx = 1, 0
-        for name in _names(entry):
+        for name in axis_names(entry):
             n, idx = n * sizes[name], idx * sizes[name] + mesh.get_local_rank(name)
         if n > 1:
             assert x.shape[d] % n == 0, f"dimension {d} of {tuple(x.shape)} over {n} blocks"
@@ -425,13 +472,13 @@ def _assemble(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     """The whole tensor from every rank's block: all-gathers along each
     sharded dimension, its minor axis first."""
     for d, entry in enumerate(_entries(spec, x.ndim)):
-        for name in reversed(_names(entry)):
+        for name in reversed(axis_names(entry)):
             x = _gather_along(x, mesh.get_group(name), d)
     return x
 
 
 def _unmentioned(spec: PartitionSpec, mesh) -> Tuple[str, ...]:
-    named = {n for entry in spec for n in _names(entry)}
+    named = {n for entry in spec for n in axis_names(entry)}
     return tuple(a for a in mesh.mesh_dim_names if a not in named)
 
 
@@ -476,15 +523,61 @@ def _canonical(spec: PartitionSpec) -> PartitionSpec:
     return P(*(None if isinstance(e, tuple) and not e else e for e in spec))
 
 
+class _SplitGrad(torch.autograd.Function):
+    """Identity; the backward divides by ``copies`` (``_FromLocal``'s)."""
+
+    @staticmethod
+    def forward(ctx, x, copies):
+        ctx.copies = copies
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.copies, None
+
+
+def _dtensor_to_local(a, spec: PartitionSpec, mesh) -> torch.Tensor:
+    """This rank's block of DTensor ``a`` under ``spec`` (a plain tensor is
+    taken as replicated); its gradient is summed over the mesh axes the spec
+    does not name, as ``_ToLocal``'s."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(a, DTensor):
+        a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    pl = placements(spec, mesh)
+    grad_pl = tuple(Partial() if isinstance(p, Replicate) else p for p in pl)
+    return a.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+
+def _dtensor_from_local(x: torch.Tensor, spec: PartitionSpec, mesh):
+    """The DTensor whose rank's block is ``x`` under ``spec``."""
+    from torch.distributed.tensor import DTensor
+
+    copies = math.prod(mesh_shape(mesh)[a] for a in _unmentioned(spec, mesh))
+    if copies > 1 and x.requires_grad:
+        x = _SplitGrad.apply(x, copies)
+    return DTensor.from_local(x, mesh, placements(spec, mesh), run_check=False)
+
+
 def shard_map(body, mesh, in_specs, out_specs):
-    """``body`` run on this rank's blocks. Each input (a whole tensor, the same
-    on every rank) is cut to its block under its entry of ``in_specs``; each
-    output block is gathered back under ``out_specs`` (a spec, or a tuple of
-    specs for a tuple of outputs)."""
+    """``body`` run on this rank's blocks. With no DTensor among the inputs,
+    each (a whole tensor, the same on every rank) is cut to its block under
+    its entry of ``in_specs`` and each output block is gathered back under
+    ``out_specs`` (a spec, or a tuple of specs for a tuple of outputs). With
+    a DTensor among them, each input is redistributed to its spec and taken
+    local (a plain tensor taken as replicated), and each output block comes
+    back as a DTensor at its spec."""
     single = isinstance(out_specs, PartitionSpec)
 
     def run(*args):
         assert len(args) == len(in_specs), (len(args), len(in_specs))
+        if any(hasattr(a, "placements") for a in args):
+            local = [_dtensor_to_local(a, _canonical(s), mesh) for a, s in zip(args, in_specs)]
+            outs = body(*local)
+            if single:
+                return _dtensor_from_local(outs, _canonical(out_specs), mesh)
+            return tuple(_dtensor_from_local(o, _canonical(s), mesh)
+                         for o, s in zip(outs, out_specs))
         local = [_ToLocal.apply(a, _canonical(s), mesh) for a, s in zip(args, in_specs)]
         outs = body(*local)
         if single:

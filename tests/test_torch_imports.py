@@ -25,7 +25,7 @@ def test_no_source_imports_jax_or_repro():
 
 
 def test_imports_and_runs_without_jax():
-    """Every module imports (the mesh and sharding modules without
+    """Every module imports (the mesh, sharding and dry-run modules without
     initialising a process group), a tiny forward of each ported family
     (MoE with MLA and with GQA among them) runs, and
     MobileNetV2 is verified and served through the port's
@@ -40,11 +40,13 @@ def test_imports_and_runs_without_jax():
                  .removesuffix(".__init__") for f in sorted(port.rglob("*.py"))]
         for name in names:
             importlib.import_module(name)
-        # the mesh and sharding modules touch no process group when imported
+        # the mesh, sharding and dry-run modules touch no process group (and
+        # no CUDA device) when imported
         import torch.distributed as dist
         assert {"repro_torch.launch.mesh", "repro_torch.utils.sharding",
-                "repro_torch.models.smblock"} <= set(names)
-        assert not dist.is_initialized()
+                "repro_torch.models.smblock", "repro_torch.launch.dryrun",
+                "repro_torch.launch.roofline", "repro_torch.utils.hlo"} <= set(names)
+        assert not dist.is_initialized() and not torch.cuda.is_initialized()
         from repro_torch.configs import get_config
         from repro_torch.models.model import Model
         for arch in ("qwen2.5-3b", "mamba2-130m", "recurrentgemma-9b", "deepseek-v2-236b",

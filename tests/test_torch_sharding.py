@@ -15,6 +15,7 @@ its thread-local directly; nothing of ``src/repro`` changes.
 """
 
 import contextlib
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -222,6 +223,23 @@ def test_production_mesh_under_a_fake_group(multi_pod):
     assert not dist.is_initialized()
 
 
+@pytest.mark.parametrize("heads", [8, 6])
+def test_shard_drops_the_axes_that_do_not_divide(heads):
+    """``shard`` of a DTensor on a (1, 4) mesh: "heads" over "model" where 4
+    divides them, else replicated (a block must divide exactly)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    with fake_group(4):
+        mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+        x = DTensor.from_local(torch.zeros(2, heads, 8), mesh, [Replicate(), Replicate()],
+                               run_check=False)
+        with S.logical_rules(mesh):
+            y = S.shard(x, "batch", "heads", None)
+        assert y.placements[1] == (Shard(1) if heads % 4 == 0 else Replicate())
+        assert tuple(y.shape) == (2, heads, 8)
+
+
 def test_mesh_needs_a_group_and_follows_its_backend(monkeypatch):
     """No process group: an error, not a mesh. NCCL gives a CUDA mesh, gloo
     a CPU one; another backend is refused rather than given a CPU mesh."""
@@ -235,3 +253,103 @@ def test_mesh_needs_a_group_and_follows_its_backend(monkeypatch):
     monkeypatch.setattr(MESH.dist, "get_backend", lambda: "mpi")
     with pytest.raises(ValueError, match="mpi"):
         MESH._device_type()
+
+
+@pytest.fixture(scope="module")
+def dtensor_runs(tmp_path_factory):
+    """The reference's parameters, inputs and outputs without a mesh, and
+    the ranks' results on DTensors (``torch_gloo_ranks.job_dtensor``)."""
+    from repro.configs import get_config as ref_get_config
+    from repro.models.model import Model as RefModel
+    from torch_gloo_ranks import DECODE_STEPS, DTENSOR_ARCHS, DTENSOR_CHANGES, Ranks, flatten
+
+    d = tmp_path_factory.mktemp("dtensor_ranks")
+    rng = np.random.default_rng(0)
+    models, params, arrays = {}, {}, {}
+    for name, arch in DTENSOR_ARCHS.items():
+        models[name] = RefModel(dataclasses.replace(ref_get_config(arch).reduced(),
+                                                    **DTENSOR_CHANGES))
+        params[name], _ = models[name].init(jax.random.PRNGKey(0))
+        arrays.update({k: np.asarray(v) for k, v in flatten(params[name], f"{name}/p/").items()})
+        arrays[f"{name}/tokens"] = rng.integers(0, models[name].cfg.vocab_size, (2, 16),
+                                                dtype=np.int32)
+    cfg = models["qwen"].cfg
+    arrays["qwen/grad_tokens"] = rng.integers(0, cfg.vocab_size, (2, 17), dtype=np.int32)
+    arrays["qwen/decode_tokens"] = rng.integers(0, cfg.vocab_size, (2, DECODE_STEPS),
+                                                dtype=np.int32)
+    wcfg = models["whisper"].cfg
+    arrays["whisper/frames"] = rng.standard_normal(
+        (2, wcfg.num_frames, wcfg.d_model)).astype(np.float32)
+    np.savez(d / "in.npz", **arrays)
+    ranks = Ranks("dtensor", d)
+
+    want = {}
+    for name, keys in (("qwen", ["tokens"]), ("mamba", ["tokens"]),
+                       ("whisper", ["tokens", "frames"])):
+        logits, _, cache = jax.jit(lambda p, b, m=models[name]: m.forward(p, b, mode="prefill"))(
+            params[name], {k: jnp.asarray(arrays[f"{name}/{k}"]) for k in keys})
+        want[f"{name}/logits"] = np.asarray(logits)
+        if name == "qwen":
+            want["qwen/k0"] = np.asarray(cache["kv"][0][0])
+        if name == "mamba":
+            want["mamba/ssm"] = np.asarray(cache["ssm_states"]["ssm"])
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        lambda p: models["qwen"].loss_fn(p, {"tokens": jnp.asarray(arrays["qwen/grad_tokens"])},
+                                         remat=False), has_aux=True))(params["qwen"])
+    want["qwen/loss"] = float(loss)
+    want["grads"] = {k: np.asarray(v) for k, v in flatten(grads).items()}
+    cache, _ = models["qwen"].init_cache(2, DECODE_STEPS * 2)
+    step = jax.jit(models["qwen"].decode_step)
+    for t in range(DECODE_STEPS):
+        logits, cache = step(params["qwen"], jnp.asarray(arrays["qwen/decode_tokens"][:, t]),
+                             cache)
+        want[f"decode/logits{t}"] = np.asarray(logits)
+    return want, ranks.results()
+
+
+#: the reference's bound for a sharded forward (tests/test_moe_sharded.py:90-91)
+SHARDED_TOL = 5e-4
+
+
+def test_dtensor_prefill_and_grads_match_reference(dtensor_runs):
+    """On 4 gloo ranks, a (2, 2) mesh: reduced qwen2.5-3b (fp32) prefill on
+    DTensor parameters placed by their logical axes, the model's shard calls
+    in place, against the reference's forward without a mesh within
+    SHARDED_TOL; ``loss_fn`` on (2, 17) tokens: the loss within SHARDED_TOL,
+    each gradient leaf within 1e-4 of the leaf's largest reference gradient
+    (as ``test_torch_smblock``)."""
+    want, ranks = dtensor_runs
+    for out in ranks:
+        for key in ("qwen/logits", "qwen/k0"):
+            np.testing.assert_allclose(out[key], want[key], rtol=SHARDED_TOL, atol=SHARDED_TOL)
+        assert abs(float(out["qwen/loss"]) - want["qwen/loss"]) < SHARDED_TOL
+        grads = want["grads"]
+        assert {k.removeprefix("qwen/grad/") for k in out if k.startswith("qwen/grad/")} == set(
+            grads)
+        for k, g in grads.items():
+            err = np.max(np.abs(out[f"qwen/grad/{k}"] - g)) / max(np.max(np.abs(g)), 1e-30)
+            assert err < 1e-4, (k, err)
+
+
+def test_dtensor_decode_with_a_sequence_sharded_cache_matches_reference(dtensor_runs):
+    """Decode steps from an empty cache whose sequence is sharded over
+    "model" ({"kv_seq": ("model",)}): each rank's softmax over its block of
+    the cache, completed across the blocks, against the reference's steps."""
+    from torch_gloo_ranks import DECODE_STEPS
+
+    want, ranks = dtensor_runs
+    for out in ranks:
+        assert "Shard(dim=3)" in str(out["decode/cache_k"])
+        for t in range(DECODE_STEPS):
+            np.testing.assert_allclose(out[f"decode/logits{t}"], want[f"decode/logits{t}"],
+                                       rtol=SHARDED_TOL, atol=SHARDED_TOL)
+
+
+@pytest.mark.parametrize("key", ["mamba/logits", "mamba/ssm", "whisper/logits"])
+def test_dtensor_ssd_and_cross_attention_match_reference(dtensor_runs, key):
+    """The SSD scan (reduced mamba2-130m) and cross attention over frames
+    (reduced whisper-medium) run rank by rank on heads: prefill logits and
+    the SSD's final states against the reference's."""
+    want, ranks = dtensor_runs
+    for out in ranks:
+        np.testing.assert_allclose(out[key], want[key], rtol=SHARDED_TOL, atol=SHARDED_TOL)

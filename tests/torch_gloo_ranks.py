@@ -36,6 +36,11 @@ MOE_CHANGES = dict(dtype="float32", d_model=64, num_experts=8, top_k=2, d_ff_exp
 #: the reference test's reduced qwen2-7b (tests/test_moe_sharded.py:73-75)
 SMBLOCK_CHANGES = dict(dtype="float32", num_heads=4, num_kv_heads=2, head_dim=32,
                        d_model=128, d_ff=256)
+#: the DTensor job's reduced configs, by name, and their changes
+DTENSOR_ARCHS = {"qwen": "qwen2.5-3b", "mamba": "mamba2-130m", "whisper": "whisper-medium"}
+DTENSOR_CHANGES = dict(dtype="float32")
+#: the DTensor job's decode steps (its cache holds twice as many)
+DECODE_STEPS = 4
 #: MoE cases: (name, rule overrides, impl)
 MOE_CASES = (("default", {}, "auto"),
              ("experts_data_model", {"experts": ("data", "model")}, "auto"),
@@ -254,7 +259,86 @@ def job_smblock(rank: int, d: pathlib.Path) -> dict:
     return out
 
 
-JOBS = {"sharding": job_sharding, "moe": job_moe, "smblock": job_smblock}
+def _placed(tree, axes, mesh):
+    """``tree``'s whole tensors as DTensors at the active rules' placements
+    for their logical ``axes`` (``safe_sharding_tree``), as the dry run
+    places its arguments."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.utils.sharding import _map_axes, safe_sharding_tree
+
+    return _map_axes(lambda s, t: distribute_tensor(t, mesh, s.placements),
+                     safe_sharding_tree(tree, axes), tree,
+                     is_leaf=lambda s: hasattr(s, "placements"))
+
+
+def job_dtensor(rank: int, d: pathlib.Path) -> dict:
+    """The port's model on DTensors on a (2, 2) ("data", "model") mesh, as
+    the dry run places them (``_placed``), each rank's ops through the
+    per-rank paths of ``kernels/ops.py`` and ``models/layers.py``; every
+    result gathered whole. Reduced fp32 configs (``DTENSOR_ARCHS``):
+    qwen2.5-3b prefill (last logits, the first layer's K) and ``loss_fn``'s
+    loss and gradients (remat off), then ``DECODE_STEPS`` decode steps from
+    an empty cache under {"kv_seq": ("model",)} (the cache's sequence over
+    "model"); mamba2-130m prefill (the SSD scan, its final states);
+    whisper-medium prefill over frames (cross attention)."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.utils.params import tree_leaves, tree_map
+    from repro_torch.utils.sharding import logical_rules
+
+    flat = dict(np.load(d / "in.npz"))
+    mesh = make_host_mesh(model_parallel=2)
+    models = {k: Model(dataclasses.replace(get_config(a).reduced(), **DTENSOR_CHANGES))
+              for k, a in DTENSOR_ARCHS.items()}
+    specs = {k: m.init(device="meta")[1] for k, m in models.items()}
+    out = {}
+
+    def batch_of(name, keys):
+        arrays = {k: torch.from_numpy(flat[f"{name}/{k}"]) for k in keys}
+        return _placed(arrays, {k: ("batch",) + (None,) * (a.dim() - 1)
+                                for k, a in arrays.items()}, mesh)
+
+    with logical_rules(mesh), implicit_replication():
+        params = {k: _placed(_tensors(flat, f"{k}/p/"), specs[k], mesh) for k in models}
+        with torch.no_grad():
+            logits, _, cache = models["qwen"].forward(params["qwen"], batch_of("qwen", ["tokens"]),
+                                                      mode="prefill")
+            out["qwen/logits"] = logits.full_tensor().numpy()
+            out["qwen/k0"] = cache["kv"][0][0].full_tensor().numpy()
+            logits, _, cache = models["mamba"].forward(
+                params["mamba"], batch_of("mamba", ["tokens"]), mode="prefill")
+            out["mamba/logits"] = logits.full_tensor().numpy()
+            out["mamba/ssm"] = cache["ssm_states"]["ssm"].full_tensor().numpy()
+            logits, _, _ = models["whisper"].forward(
+                params["whisper"], batch_of("whisper", ["tokens", "frames"]), mode="prefill")
+            out["whisper/logits"] = logits.full_tensor().numpy()
+        inputs = tree_map(lambda t: t.detach().requires_grad_(), params["qwen"])
+        grad_tokens = batch_of("qwen", ["grad_tokens"])["grad_tokens"]
+        loss, _ = models["qwen"].loss_fn(inputs, {"tokens": grad_tokens}, remat=False)
+        grads = iter([g.full_tensor().numpy()
+                      for g in torch.autograd.grad(loss, tree_leaves(inputs))])
+        out["qwen/loss"] = loss.detach().full_tensor().numpy()
+        out.update({f"qwen/grad/{k}": v for k, v in flatten(tree_map(
+            lambda _: next(grads), params["qwen"])).items()})
+    with logical_rules(mesh, {"kv_seq": ("model",)}), implicit_replication(), torch.no_grad():
+        model = models["qwen"]
+        cache, cspecs = model.init_cache(2, DECODE_STEPS * 2, device="cpu")
+        cache = _placed(cache, cspecs, mesh)
+        out["decode/cache_k"] = np.array(str(cache["k"].placements))
+        steps = batch_of("qwen", ["decode_tokens"])["decode_tokens"]
+        for t in range(DECODE_STEPS):
+            logits, cache = model.decode_step(params["qwen"], steps[:, t], cache)
+            out[f"decode/logits{t}"] = logits.full_tensor().numpy()
+    return out
+
+
+JOBS = {"sharding": job_sharding, "moe": job_moe, "smblock": job_smblock,
+        "dtensor": job_dtensor}
 
 
 def _rank(job: str, rank: int, world: int, d: pathlib.Path) -> None:
