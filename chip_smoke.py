@@ -218,8 +218,12 @@ SP_SEQ = 512                     # tokens of the multi-device phases' (1, S) inp
 #: phase 33's dry runs: (arch, shape, the CLI's further flags); each traces
 #: on CPU fake tensors as rank 0 of a fake group of 256 or 512 ranks
 DRYRUN_CASES = (("qwen2.5-3b", "train_4k", ()),
-                ("deepseek-v2-236b", "decode_32k", ("--multi-pod", "--accounting", "rolled")))
-#: each dry-run subprocess's own time limit, s (the CPU times are in PERF.md)
+                ("deepseek-v2-236b", "decode_32k", ("--multi-pod", "--accounting", "rolled")),
+                ("whisper-medium", "train_4k", ("--accounting", "rolled")),
+                ("mamba2-130m", "train_4k", ("--accounting", "rolled")),
+                ("deepseek-v2-236b", "train_4k", ("--opt", "fsdp,ep2d", "--accounting", "rolled")))
+#: each dry-run subprocess's own time limit, s (the CPU times are in PERF.md);
+#: the cases run at once, each in a process of its own
 DRYRUN_TIMEOUT_S = 300
 #: phase 34: full-width qwen2.5-3b bf16 prefill at the smoke's (2, 512)
 COUNT_BATCH, COUNT_SEQ = 2, 512
@@ -1768,19 +1772,62 @@ def run_logged(cmd: list, timeout: float) -> str:
     return proc.stdout
 
 
+def run_concurrently(cmds: dict, timeout: float) -> dict:
+    """Start every command of ``cmds`` ({name: argv}) at once from the
+    checkout with ``subprocess_env``, wait for all, then log each one's
+    stdout lines in turn. Fails on a non-zero exit or on the time limit
+    (every process still running is killed first). Returns {name: seconds
+    from the common start to that process's exit}."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {name: open(pathlib.Path(tmp) / f"{i}.log", "w+")
+                for i, name in enumerate(cmds)}
+        procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=subprocess_env(), text=True,
+                                        stdout=outs[name], stderr=subprocess.STDOUT)
+                 for name, cmd in cmds.items()}
+        seconds = {}
+        try:
+            while len(seconds) < len(procs) and time.perf_counter() - t0 < timeout:
+                for name, proc in procs.items():
+                    if name not in seconds and proc.poll() is not None:
+                        seconds[name] = time.perf_counter() - t0
+                time.sleep(0.1)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        failed = []
+        for name, proc in procs.items():
+            outs[name].seek(0)
+            text = outs[name].read()
+            outs[name].close()
+            log(f"  {' '.join(cmds[name][1:])}")
+            for line in text.splitlines()[-40:] if proc.returncode else text.splitlines():
+                log(f"    {line}")
+            if name not in seconds:
+                failed.append(f"{name}: killed at the time limit of {timeout} s")
+            elif proc.returncode:
+                failed.append(f"{name}: exited {proc.returncode}")
+            else:
+                log(f"  ({seconds[name]:.1f} s of {timeout} s allowed)")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return seconds
+
+
 def phase_dryrun(out_dir: pathlib.Path) -> dict:
-    """``launch/dryrun.py`` on the production meshes (``DRYRUN_CASES``), each
-    in a process of its own (this process's default group may be NCCL's),
-    then ``launch/roofline.py`` over the records, both meshes. Every record
-    must be ``ok``, with FLOPs and, on a mesh, collective bytes."""
-    seconds = {}
-    for arch, shape, flags in DRYRUN_CASES:
-        log(f"  python -m repro_torch.launch.dryrun --arch {arch} --shape {shape} "
-            f"{' '.join(flags)}")
-        t0 = time.perf_counter()
-        run_logged([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                    "--shape", shape, "--out", str(out_dir), *flags], DRYRUN_TIMEOUT_S)
-        seconds[f"{arch} {shape}"] = time.perf_counter() - t0
+    """``launch/dryrun.py`` on the production meshes (``DRYRUN_CASES``), all
+    at once, each in a process of its own (this process's default group may
+    be NCCL's), then ``launch/roofline.py`` over the records, both meshes.
+    Every record must be ``ok``, with FLOPs and, on a mesh, collective
+    bytes."""
+    cmds = {" ".join((arch, shape) + flags): [
+        sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+        "--out", str(out_dir), *flags] for arch, shape, flags in DRYRUN_CASES}
+    t0 = time.perf_counter()
+    seconds = run_concurrently(cmds, DRYRUN_TIMEOUT_S)
+    log(f"  the {len(cmds)} dry runs at once: {time.perf_counter() - t0:.1f} s")
     records = {}
     for path in sorted(out_dir.glob("*.json")):
         rec = json.loads(path.read_text())

@@ -263,17 +263,34 @@ def _project_qkv(p, x, cfg: ModelConfig, nh: int, nkv: int):
         q = q + p["b_q"]
         k = k + p["b_k"]
         v = v + p["b_v"]
-    return (_split_heads(q, nh, hd), _split_heads(k, nkv, hd), _split_heads(v, nkv, hd))
+    return split_heads(q, nh, hd), split_heads(k, nkv, hd), split_heads(v, nkv, hd)
 
 
-def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    """(B, S, n * hd) -> (B, S, n, hd). A DTensor whose last dimension is
-    split over mesh axes that ``n`` heads do not divide (qwen2-7b's 28 over
-    16) is gathered on that dimension first: DTensor cannot split a block
-    across heads, where GSPMD reshards."""
-    if on_mesh(t) and rank_spec(("batch", None, "heads"), t.shape[:2] + (n,))[2] is None:
-        t = shard(t, "batch", None, None)
+def _whole_unless_heads_divide(t: torch.Tensor, n: int, logical: str) -> torch.Tensor:
+    """``t`` (B, S, n * hd), gathered on its last dimension where it is a
+    DTensor under rules that map ``logical`` to mesh axes none of which
+    divides ``n`` heads (qwen2-7b's 28 query heads, mamba2-130m's 24 SSM
+    heads over 16): DTensor cannot split a block across heads, where GSPMD
+    reshards."""
+    if (on_mesh(t) and current_rules().to_spec((logical,))[0] is not None
+            and rank_spec((logical,), (n,))[0] is None):
+        return shard(t, "batch", None, None)
+    return t
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int, logical: str = "heads") -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd), the last dimension gathered first
+    where the mesh axes of ``logical`` do not divide the heads."""
+    t = _whole_unless_heads_divide(t, n, logical)
     return t.reshape(t.shape[0], t.shape[1], n, hd)
+
+
+def merge_heads(t: torch.Tensor, logical: str = "heads") -> torch.Tensor:
+    """(B, S, n, hd) -> (B, S, n * hd), gathered after the flatten where the
+    mesh axes of ``logical`` do not divide the heads: the backward then
+    gathers the gradient before it splits it into heads."""
+    B, S, n, hd = t.shape
+    return _whole_unless_heads_divide(t.reshape(B, S, n * hd), n, logical)
 
 
 def apply_attention(

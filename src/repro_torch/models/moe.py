@@ -24,8 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.utils.params import ParamBuilder
-from repro_torch.utils.sharding import (P, axis_index, current_rules, mesh_shape, psum,
-                                        shard_map)
+from repro_torch.utils.sharding import (P, axis_index, axis_names, current_rules, fit_spec,
+                                        mesh_shape, psum, shard_map)
 
 
 def init_moe(b: ParamBuilder, name: str, cfg: ModelConfig):
@@ -207,7 +207,10 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, impl: str = "auto"):
         eaxes = rules.rules.get("experts") or ("model",)
         if isinstance(eaxes, str):
             eaxes = (eaxes,)
-        eaxes = tuple(a for a in eaxes if a in sizes)
+        # less the axes that do not divide the experts, as their stacks are
+        # placed (``fit_spec``): 2D parallelism over 16 x 16 ranks keeps
+        # deepseek-v2's 160 and kimi-k2's 384 experts over "data" alone
+        eaxes = axis_names(fit_spec(P(tuple(a for a in eaxes if a in sizes)), (E,), mesh)[0])
         msize = math.prod(sizes[a] for a in eaxes)
         assert E % msize == 0, f"experts {E} % expert-parallel size {msize}"
         e_local = E // msize

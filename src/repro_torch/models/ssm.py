@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ssd
+from repro_torch.models.layers import merge_heads, split_heads, ssd
 from repro_torch.utils.params import ParamBuilder
 from repro_torch.utils.sharding import shard
 
@@ -89,7 +89,9 @@ def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, state=None):
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
-    xh = shard(xs.reshape(B, L, H, P_dim), "batch", None, "heads", None)
+    # mamba2-130m's 24 heads do not divide 16 "model" ranks where its
+    # 1536 "ff" channels do: split and merge its heads whole there
+    xh = shard(split_heads(xs, H, P_dim, "ff"), "batch", None, "heads", None)
     chunk = min(cfg.ssm_chunk, L)
     y, h_fin = ssd(xh, dt, a, bm.reshape(B, L, G, N), cm.reshape(B, L, G, N), chunk=chunk)
     if state is not None:
@@ -97,7 +99,7 @@ def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, state=None):
         # in the reference: decode uses apply_ssm_decode instead
         raise NotImplementedError("use apply_ssm_decode for stateful stepping")
     y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * xh
-    y = _gated_norm(y.reshape(B, L, d_inner), z, p, cfg, x.dtype)
+    y = _gated_norm(merge_heads(y, "ff"), z, p, cfg, x.dtype)
     y = shard(y, "batch", None, "ff")
     return y @ p["w_out"], {"conv": new_conv, "ssm": h_fin}
 

@@ -211,8 +211,45 @@ def shard(x: torch.Tensor, *axes: LogicalAxis) -> torch.Tensor:
 
     if isinstance(x, DTensor):
         spec = fit_spec(rules.to_spec(axes), x.shape, rules.mesh)
-        return x.redistribute(rules.mesh, placements(spec, rules.mesh))
+        return _Redistribute.apply(x, rules.mesh, placements(spec, rules.mesh))
     return x
+
+
+def _contiguous_strides(shape) -> Tuple[int, ...]:
+    strides, n = [], 1
+    for size in reversed(tuple(shape)):
+        strides.append(n)
+        n *= max(int(size), 1)
+    return tuple(reversed(strides))
+
+
+class _Redistribute(torch.autograd.Function):
+    """``DTensor.redistribute`` whose backward describes a contiguous
+    gradient block as contiguous. DTensor's own backward keeps the strides
+    of the gradient it got, which the contiguous result of its collective
+    (an all-gather of a transposed gradient) does not have: a later view
+    (the backward of a head split) then fails."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        ctx.args = (mesh, x.placements)
+        return x.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        mesh, src = ctx.args
+        # a partial source takes the gradient replicated, as DTensor's own
+        # backward gives it
+        target = tuple(Replicate() if isinstance(p, Partial) and not isinstance(g, Partial)
+                       else p for p, g in zip(src, grad.placements))
+        out = grad.redistribute(mesh, target)
+        local = out.to_local()
+        if local.is_contiguous() and not out.is_contiguous():
+            out = DTensor.from_local(local, mesh, out.placements, run_check=False,
+                                     shape=out.shape, stride=_contiguous_strides(out.shape))
+        return out, None, None
 
 
 def is_axes_leaf(a: Any) -> bool:
@@ -330,8 +367,11 @@ def _axes(axes) -> Tuple[str, ...]:
 def axis_group(mesh, axes):
     """The process group of this rank's ranks along ``axes`` (one mesh axis or
     several). A group over several axes is built on first use, on every rank
-    in the same order (each rank's body reaches the same collectives)."""
+    in the same order (each rank's body reaches the same collectives). The
+    rank lists come from the mesh's rank tensor with the dispatch modes off:
+    a fake mode tracing the body would intercept its ops."""
     import torch.distributed as dist
+    from torch.utils._python_dispatch import _disable_current_modes
 
     axes = _axes(axes)
     if len(axes) == 1:
@@ -341,10 +381,11 @@ def axis_group(mesh, axes):
         names = list(mesh.mesh_dim_names)
         dims = [names.index(a) for a in axes]
         rest = [i for i in range(len(names)) if i not in dims]
-        ranks = mesh.mesh.permute(*rest, *dims).reshape(-1, math.prod(mesh.mesh.shape[d]
-                                                                      for d in dims))
+        with _disable_current_modes():
+            ranks = mesh.mesh.permute(*rest, *dims).reshape(
+                -1, math.prod(mesh.mesh.shape[d] for d in dims)).tolist()
         mine, me = None, dist.get_rank()
-        for row in ranks.tolist():
+        for row in ranks:
             group = dist.new_group(row)
             if me in row:
                 mine = group
@@ -546,7 +587,7 @@ def _dtensor_to_local(a, spec: PartitionSpec, mesh) -> torch.Tensor:
         a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
     pl = placements(spec, mesh)
     grad_pl = tuple(Partial() if isinstance(p, Replicate) else p for p in pl)
-    return a.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+    return _Redistribute.apply(a, mesh, pl).to_local(grad_placements=grad_pl)
 
 
 def _dtensor_from_local(x: torch.Tensor, spec: PartitionSpec, mesh):

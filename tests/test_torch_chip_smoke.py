@@ -73,3 +73,19 @@ def test_profile_call_without_a_kernel_of_the_repo_is_not_checkable(smoke, monke
     smoke.reset_counts()
     out = smoke.profile_call(lambda: None, "a conv", "stub card")
     assert out["whole"] is None and out["attempts"] == 1 and out["launches"] == 4
+
+
+def test_run_concurrently_runs_at_once_and_fails_on_any_exit(smoke, capsys):
+    """``run_concurrently`` (phase 33's dry runs) starts every command at
+    once: two 1 s sleeps end within 2 s together; a command that exits
+    non-zero fails the call, and one past the time limit is killed."""
+    sleep = [smoke.sys.executable, "-c", "import time; time.sleep(1); print('slept')"]
+    seconds = smoke.run_concurrently({"a": sleep, "b": sleep}, timeout=30)
+    assert set(seconds) == {"a", "b"} and max(seconds.values()) < 2.0
+    assert [line.strip() for line in capsys.readouterr().out.splitlines()].count("slept") == 2
+    fail = [smoke.sys.executable, "-c", "raise SystemExit(3)"]
+    with pytest.raises(RuntimeError, match="fail: exited 3"):
+        smoke.run_concurrently({"ok": sleep, "fail": fail}, timeout=30)
+    hang = [smoke.sys.executable, "-c", "import time; time.sleep(60)"]
+    with pytest.raises(RuntimeError, match="hang: killed at the time limit"):
+        smoke.run_concurrently({"hang": hang}, timeout=1)

@@ -268,3 +268,111 @@ def test_heads_that_do_not_divide_the_model_axis(mesh):
                      cfg=reduced("qwen2-7b", num_heads=6, num_kv_heads=2), mesh=wide,
                      accounting="rolled", verbose=False)
     assert r["status"] == "ok" and r["flops_per_device"] > 0
+
+
+#: reduced configs with the head layouts of the published ones that the
+#: default reduction loses: whisper-medium's as many kv heads as query heads,
+#: mamba2-130m's SSM heads that the model axis does not divide (24 over 16;
+#: here 3 over 2) while it divides the channels; and the most FLOPs the four
+#: ranks may count, over the one device's
+LAYOUT_CASES = {
+    "whisper-medium": (dict(num_kv_heads=4), 1.25),
+    # the SSD scan runs replicated over the model axis: up to twice
+    "mamba2-130m": (dict(d_model=48, num_layers=1, ssm_chunk=1024), 2.0),
+}
+
+
+@pytest.mark.parametrize("arch", list(LAYOUT_CASES))
+def test_training_with_the_published_head_layout(mesh, arch):
+    """train_4k on the fake (2, 2) mesh. whisper-medium: the self and cross
+    attentions' backward gathers the K, V and Q gradients over the heads
+    before the head split's backward views them (``sharding._Redistribute``);
+    mamba2-130m: the heads are split and merged whole (``layers.split_heads``,
+    ``merge_heads``)."""
+    changes, most = LAYOUT_CASES[arch]
+    cfg = reduced(arch, **changes)
+    if arch == "whisper-medium":
+        assert cfg.num_kv_heads == cfg.num_heads
+    else:
+        from repro_torch.models.ssm import ssm_dims
+
+        d_inner, heads, _, _ = ssm_dims(cfg)
+        assert heads % 2 and d_inner % 2 == 0
+    r = D.dryrun_one(arch, "train_4k", cfg=cfg, mesh=mesh, accounting="rolled", verbose=False)
+    one = D.dryrun_one(arch, "train_4k", cfg=cfg, mesh=None, accounting="rolled", verbose=False)
+    assert r["status"] == "ok" and r["chips"] == 4
+    assert one["flops_per_device"] <= 4 * r["flops_per_device"] <= most * one["flops_per_device"]
+    assert r["collective_bytes_per_device"] > 0 and sum(r["collective_counts"].values()) > 0
+
+
+#: each of the reference's ``--opt`` values on the arch and shape where it acts
+OPT_CASES = [("deepseek-v2-236b", "decode_32k", "ep2d"),
+             ("deepseek-v2-236b", "decode_32k", "moe2d"),
+             ("deepseek-v2-236b", "train_4k", "fsdp,ep2d")] + [
+    ("qwen2.5-3b", "train_4k", o)
+    for o in ("smblock", "seqpar", "fsdp", "zero1", "remat_outputs", "remat_none")] + [
+    ("qwen2.5-3b", "decode_32k", o) for o in ("kv_int8", "no_kvseq_shard")]
+
+
+@pytest.fixture
+def traced_collectives(monkeypatch):
+    """The collective records of each trace ``dryrun_one`` accounts, in order."""
+    seen = []
+    collective_bytes = D.collective_bytes
+
+    def spy(records):
+        seen.append(list(records))
+        return collective_bytes(seen[-1])
+
+    monkeypatch.setattr(D, "collective_bytes", spy)
+    return seen
+
+
+@pytest.mark.parametrize("arch,shape,opt", OPT_CASES)
+def test_each_option_traces(mesh, traced_collectives, arch, shape, opt):
+    """Each option traces on the fake (2, 2) mesh with the record's keys;
+    under ``ep2d`` the MoE's all-reduce spans both mesh axes (a group of all
+    4 ranks), under the default rules and ``moe2d`` no collective does."""
+    opts = tuple(opt.split(","))
+    r = D.dryrun_one(arch, shape, cfg=reduced(arch), mesh=mesh, opts=opts,
+                     accounting="rolled", verbose=False)
+    assert r["status"] == "ok" and r["opts"] == list(opts)
+    assert r["flops_per_device"] > 0 and r["collective_counts"]["all-reduce"] > 0
+    both = [c for c in traced_collectives[0] if c.group_size == 4]
+    if "ep2d" in opts:
+        assert {c.kind for c in both} == {"all-reduce"}
+    else:
+        assert not both
+
+
+def test_ep2d_keeps_the_expert_axes_that_divide_the_experts(mesh, traced_collectives):
+    """2D expert parallelism with experts that the two axes together do not
+    divide (deepseek-v2's 160 and kimi-k2's 384 over 16 x 16 ranks; here 6
+    over 2 x 2): the experts go over "data" alone, as their stacks are
+    placed, and the MoE's all-reduce spans that axis (2 ranks)."""
+    r = D.dryrun_one("deepseek-v2-236b", "decode_32k",
+                     cfg=reduced("deepseek-v2-236b", num_experts=6), mesh=mesh, opts=("ep2d",),
+                     accounting="rolled", verbose=False)
+    assert r["status"] == "ok"
+    assert not [c for c in traced_collectives[0] if c.group_size == 4]
+
+
+def test_axis_group_over_two_axes_under_the_fake_mode(mesh):
+    """A group over ("data", "model") is built from the mesh's rank list
+    while the dry run's fake and counting modes are on, and a ``psum`` over
+    both axes records one all-reduce of all 4 ranks."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.utils.sharding import axis_group, psum
+
+    fresh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    counter = D.StepCount()
+    with FakeTensorMode() as fake:
+        x = torch.empty(8, 4)
+    with fake, counter:
+        group = axis_group(fresh, ("data", "model"))
+        psum(x, fresh, ("data", "model"))
+    assert dist.get_process_group_ranks(group) == [0, 1, 2, 3]
+    assert counter.collectives == [D.Collective("all-reduce", (8, 4), "f32", 4)]

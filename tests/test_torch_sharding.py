@@ -261,14 +261,14 @@ def dtensor_runs(tmp_path_factory):
     the ranks' results on DTensors (``torch_gloo_ranks.job_dtensor``)."""
     from repro.configs import get_config as ref_get_config
     from repro.models.model import Model as RefModel
-    from torch_gloo_ranks import DECODE_STEPS, DTENSOR_ARCHS, DTENSOR_CHANGES, Ranks, flatten
+    from torch_gloo_ranks import DECODE_STEPS, DTENSOR_ARCHS, Ranks, dtensor_changes, flatten
 
     d = tmp_path_factory.mktemp("dtensor_ranks")
     rng = np.random.default_rng(0)
     models, params, arrays = {}, {}, {}
     for name, arch in DTENSOR_ARCHS.items():
         models[name] = RefModel(dataclasses.replace(ref_get_config(arch).reduced(),
-                                                    **DTENSOR_CHANGES))
+                                                    **dtensor_changes(name)))
         params[name], _ = models[name].init(jax.random.PRNGKey(0))
         arrays.update({k: np.asarray(v) for k, v in flatten(params[name], f"{name}/p/").items()})
         arrays[f"{name}/tokens"] = rng.integers(0, models[name].cfg.vocab_size, (2, 16),
@@ -277,15 +277,17 @@ def dtensor_runs(tmp_path_factory):
     arrays["qwen/grad_tokens"] = rng.integers(0, cfg.vocab_size, (2, 17), dtype=np.int32)
     arrays["qwen/decode_tokens"] = rng.integers(0, cfg.vocab_size, (2, DECODE_STEPS),
                                                 dtype=np.int32)
-    wcfg = models["whisper"].cfg
-    arrays["whisper/frames"] = rng.standard_normal(
-        (2, wcfg.num_frames, wcfg.d_model)).astype(np.float32)
+    for name in ("whisper", "whisper_mha"):
+        wcfg = models[name].cfg
+        arrays[f"{name}/frames"] = rng.standard_normal(
+            (2, wcfg.num_frames, wcfg.d_model)).astype(np.float32)
+    arrays["whisper_mha/grad_tokens"] = rng.integers(0, wcfg.vocab_size, (2, 17), dtype=np.int32)
     np.savez(d / "in.npz", **arrays)
     ranks = Ranks("dtensor", d)
 
     want = {}
     for name, keys in (("qwen", ["tokens"]), ("mamba", ["tokens"]),
-                       ("whisper", ["tokens", "frames"])):
+                       ("whisper", ["tokens", "frames"]), ("whisper_mha", ["tokens", "frames"])):
         logits, _, cache = jax.jit(lambda p, b, m=models[name]: m.forward(p, b, mode="prefill"))(
             params[name], {k: jnp.asarray(arrays[f"{name}/{k}"]) for k in keys})
         want[f"{name}/logits"] = np.asarray(logits)
@@ -298,6 +300,13 @@ def dtensor_runs(tmp_path_factory):
                                          remat=False), has_aux=True))(params["qwen"])
     want["qwen/loss"] = float(loss)
     want["grads"] = {k: np.asarray(v) for k, v in flatten(grads).items()}
+    batch = {k: jnp.asarray(arrays[f"whisper_mha/{a}"])
+             for k, a in (("tokens", "grad_tokens"), ("frames", "frames"))}
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        lambda p: models["whisper_mha"].loss_fn(p, batch, remat=False), has_aux=True))(
+            params["whisper_mha"])
+    want["whisper_mha/loss"] = float(loss)
+    want["whisper_mha/grads"] = {k: np.asarray(v) for k, v in flatten(grads).items()}
     cache, _ = models["qwen"].init_cache(2, DECODE_STEPS * 2)
     step = jax.jit(models["qwen"].decode_step)
     for t in range(DECODE_STEPS):
@@ -353,3 +362,24 @@ def test_dtensor_ssd_and_cross_attention_match_reference(dtensor_runs, key):
     want, ranks = dtensor_runs
     for out in ranks:
         np.testing.assert_allclose(out[key], want[key], rtol=SHARDED_TOL, atol=SHARDED_TOL)
+
+
+def test_dtensor_whisper_with_as_many_kv_heads_as_heads_matches_reference(dtensor_runs):
+    """Reduced whisper-medium with its published head layout (kv heads =
+    query heads, so that the kv heads are split over "model" as the query
+    heads): prefill logits and ``loss_fn``'s loss within SHARDED_TOL of the
+    reference's, each gradient leaf within 1e-4 of the leaf's largest
+    reference gradient (the self and cross attentions' backward gathers the
+    K, V and Q gradients over the heads before the head split's backward)."""
+    want, ranks = dtensor_runs
+    grads = want["whisper_mha/grads"]
+    for out in ranks:
+        np.testing.assert_allclose(out["whisper_mha/logits"], want["whisper_mha/logits"],
+                                   rtol=SHARDED_TOL, atol=SHARDED_TOL)
+        assert abs(float(out["whisper_mha/loss"]) - want["whisper_mha/loss"]) < SHARDED_TOL
+        assert {k.removeprefix("whisper_mha/grad/") for k in out
+                if k.startswith("whisper_mha/grad/")} == set(grads)
+        for k, g in grads.items():
+            err = np.max(np.abs(out[f"whisper_mha/grad/{k}"] - g)) / max(np.max(np.abs(g)),
+                                                                         1e-30)
+            assert err < 1e-4, (k, err)

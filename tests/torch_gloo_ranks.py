@@ -37,8 +37,11 @@ MOE_CHANGES = dict(dtype="float32", d_model=64, num_experts=8, top_k=2, d_ff_exp
 SMBLOCK_CHANGES = dict(dtype="float32", num_heads=4, num_kv_heads=2, head_dim=32,
                        d_model=128, d_ff=256)
 #: the DTensor job's reduced configs, by name, and their changes
-DTENSOR_ARCHS = {"qwen": "qwen2.5-3b", "mamba": "mamba2-130m", "whisper": "whisper-medium"}
+DTENSOR_ARCHS = {"qwen": "qwen2.5-3b", "mamba": "mamba2-130m", "whisper": "whisper-medium",
+                 "whisper_mha": "whisper-medium"}
 DTENSOR_CHANGES = dict(dtype="float32")
+#: whisper-medium's published head layout (as many kv heads as query heads)
+DTENSOR_ARCH_CHANGES = {"whisper_mha": dict(num_kv_heads=4)}
 #: the DTensor job's decode steps (its cache holds twice as many)
 DECODE_STEPS = 4
 #: MoE cases: (name, rule overrides, impl)
@@ -55,6 +58,11 @@ PLACEMENT_CASES = (
      ((("pod", "data"), None), (("data", "pod"), "model"), ("data", ("pod", "model")),
       (None, ("pod", "data")))),
 )
+
+
+def dtensor_changes(name: str) -> dict:
+    """The changes to the reduced config of the DTensor job's ``name``."""
+    return {**DTENSOR_CHANGES, **DTENSOR_ARCH_CHANGES.get(name, {})}
 
 
 def flatten(tree, prefix="") -> dict:
@@ -281,7 +289,8 @@ def job_dtensor(rank: int, d: pathlib.Path) -> dict:
     loss and gradients (remat off), then ``DECODE_STEPS`` decode steps from
     an empty cache under {"kv_seq": ("model",)} (the cache's sequence over
     "model"); mamba2-130m prefill (the SSD scan, its final states);
-    whisper-medium prefill over frames (cross attention)."""
+    whisper-medium prefill over frames (cross attention), and with as many
+    kv heads as query heads its prefill, loss and gradients."""
     import torch
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -293,7 +302,7 @@ def job_dtensor(rank: int, d: pathlib.Path) -> dict:
 
     flat = dict(np.load(d / "in.npz"))
     mesh = make_host_mesh(model_parallel=2)
-    models = {k: Model(dataclasses.replace(get_config(a).reduced(), **DTENSOR_CHANGES))
+    models = {k: Model(dataclasses.replace(get_config(a).reduced(), **dtensor_changes(k)))
               for k, a in DTENSOR_ARCHS.items()}
     specs = {k: m.init(device="meta")[1] for k, m in models.items()}
     out = {}
@@ -314,17 +323,23 @@ def job_dtensor(rank: int, d: pathlib.Path) -> dict:
                 params["mamba"], batch_of("mamba", ["tokens"]), mode="prefill")
             out["mamba/logits"] = logits.full_tensor().numpy()
             out["mamba/ssm"] = cache["ssm_states"]["ssm"].full_tensor().numpy()
-            logits, _, _ = models["whisper"].forward(
-                params["whisper"], batch_of("whisper", ["tokens", "frames"]), mode="prefill")
-            out["whisper/logits"] = logits.full_tensor().numpy()
-        inputs = tree_map(lambda t: t.detach().requires_grad_(), params["qwen"])
-        grad_tokens = batch_of("qwen", ["grad_tokens"])["grad_tokens"]
-        loss, _ = models["qwen"].loss_fn(inputs, {"tokens": grad_tokens}, remat=False)
-        grads = iter([g.full_tensor().numpy()
-                      for g in torch.autograd.grad(loss, tree_leaves(inputs))])
-        out["qwen/loss"] = loss.detach().full_tensor().numpy()
-        out.update({f"qwen/grad/{k}": v for k, v in flatten(tree_map(
-            lambda _: next(grads), params["qwen"])).items()})
+            for name in ("whisper", "whisper_mha"):
+                logits, _, _ = models[name].forward(
+                    params[name], batch_of(name, ["tokens", "frames"]), mode="prefill")
+                out[f"{name}/logits"] = logits.full_tensor().numpy()
+
+        def loss_and_grads(name, batch):
+            inputs = tree_map(lambda t: t.detach().requires_grad_(), params[name])
+            loss, _ = models[name].loss_fn(inputs, batch, remat=False)
+            grads = iter([g.full_tensor().numpy()
+                          for g in torch.autograd.grad(loss, tree_leaves(inputs))])
+            out[f"{name}/loss"] = loss.detach().full_tensor().numpy()
+            out.update({f"{name}/grad/{k}": v for k, v in flatten(tree_map(
+                lambda _: next(grads), params[name])).items()})
+
+        loss_and_grads("qwen", {"tokens": batch_of("qwen", ["grad_tokens"])["grad_tokens"]})
+        batch = batch_of("whisper_mha", ["grad_tokens", "frames"])
+        loss_and_grads("whisper_mha", {"tokens": batch["grad_tokens"], "frames": batch["frames"]})
     with logical_rules(mesh, {"kv_seq": ("model",)}), implicit_replication(), torch.no_grad():
         model = models["qwen"]
         cache, cspecs = model.init_cache(2, DECODE_STEPS * 2, device="cpu")
