@@ -141,6 +141,13 @@ class BurstyArrivals(ArrivalProcess):
         until ``n`` arrivals have been generated."""
         assert self.on_rate_rps > 0, self.on_rate_rps
         assert self.off_rate_rps >= 0, self.off_rate_rps
+        # a chain of under 1e-3 expected arrivals per on/off cycle walks
+        # a thousand cycles or more per arrival, and at 0 for ever
+        per_cycle = (self.on_rate_rps * self.mean_on_ms
+                     + self.off_rate_rps * self.mean_off_ms) / 1000.0
+        if per_cycle < 1e-3:
+            raise ValueError(f"{self.describe()}: {per_cycle:g} expected "
+                             f"arrivals per on/off cycle, under 1e-3")
         rng = np.random.default_rng(self.seed)
         out = np.empty(n, dtype=np.float64)
         got = 0

@@ -144,6 +144,15 @@ ADAPTATIONS = {
         ("import numpy as np\n", "import numpy as np\nimport torch\n"),
         ("ok = np.allclose(np.asarray(h), np.asarray(y_mono), rtol=1e-5, atol=1e-5)",
          "ok = torch.allclose(h, y_mono, rtol=1e-5, atol=1e-5)")],
+    # a chain of almost no arrivals per on/off cycle raises, where the reference walks (near) for ever
+    "core/traffic.py": [
+        ("        assert self.off_rate_rps >= 0, self.off_rate_rps\n",
+         "        assert self.off_rate_rps >= 0, self.off_rate_rps\n"
+         "        per_cycle = (self.on_rate_rps * self.mean_on_ms\n"
+         "                     + self.off_rate_rps * self.mean_off_ms) / 1000.0\n"
+         "        if per_cycle < 1e-3:\n"
+         "            raise ValueError(f\"{self.describe()}: {per_cycle:g} expected \"\n"
+         "                             f\"arrivals per on/off cycle, under 1e-3\")\n")],
     # the default artifact is the card's curves, not the host-XLA ones
     "core/cost_model.py": [
         ('CALIBRATION_ARTIFACT = pathlib.Path("artifacts/calibration/batch_curves.json")',
@@ -203,6 +212,41 @@ def test_port_verify_numerics_bound_is_the_references():
             h = (y + rng.uniform(-scale, scale, y.shape) * (1 + np.abs(y))).astype(np.float32)
             assert torch.allclose(torch.from_numpy(h), torch.from_numpy(y), rtol=1e-5, atol=1e-5) \
                 == np.allclose(h, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("chain, holds", [
+    pytest.param(dict(on_rate_rps=40.0, mean_on_ms=0.0, mean_off_ms=50.0), False,
+                 id="zero-on-dwell-silent-off"),
+    pytest.param(dict(on_rate_rps=40.0, off_rate_rps=5.0, mean_on_ms=0.0, mean_off_ms=0.0),
+                 False, id="both-dwells-zero"),
+    pytest.param(dict(on_rate_rps=2000.0, mean_on_ms=5e-324, mean_off_ms=5e-324), False,
+                 id="subnormal-dwells"),
+    pytest.param(dict(on_rate_rps=2000.0, mean_on_ms=4e-4, mean_off_ms=4e-4), False,
+                 id="under-1e-3-per-cycle"),
+    pytest.param(dict(on_rate_rps=2000.0, mean_on_ms=0.01, mean_off_ms=0.01, seed=5), True,
+                 id="short-bursts-silent-off"),
+    pytest.param(dict(on_rate_rps=40.0, off_rate_rps=5.0, mean_on_ms=0.0, mean_off_ms=50.0),
+                 True, id="zero-on-dwell-busy-off"),
+    pytest.param(dict(on_rate_rps=40.0, mean_on_ms=200.0, mean_off_ms=600.0, seed=3), True,
+                 id="silent-off"),
+    pytest.param(dict(on_rate_rps=8.0, off_rate_rps=2.0, mean_on_ms=500.0, mean_off_ms=1500.0,
+                      seed=7), True, id="busy-off"),
+    pytest.param(dict(on_rate_rps=400.0, mean_on_ms=0.5, mean_off_ms=0.0, seed=11), True,
+                 id="short-bursts-zero-off-dwell"),
+])
+def test_bursty_chain_of_almost_no_arrivals_raises(chain, holds):
+    """The reference walks a chain of (almost) no arrivals per on/off cycle
+    for ever, or near enough; the port refuses one of under 1e-3. Every
+    other chain gives the reference's offsets bit for bit."""
+    from repro.core.traffic import BurstyArrivals as RefBursty
+    from repro_torch.core.traffic import BurstyArrivals
+    if not holds:
+        with pytest.raises(ValueError, match="expected arrivals per on/off cycle, under 1e-3"):
+            BurstyArrivals(**chain).offsets(64)
+        return
+    got = BurstyArrivals(**chain).offsets(64)
+    assert got.shape == (64,) and bool(np.all(np.diff(got) >= 0))
+    assert np.array_equal(got, RefBursty(**chain).offsets(64))
 
 
 def test_digest_of_a_tensor_is_the_references():
