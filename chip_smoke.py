@@ -46,13 +46,19 @@ Phases (any failure exits non-zero):
      1/sqrt(192)) with the reduced MLA's D 48 / Dv 32 in fp32; the Whisper
      encoder's non-causal (4, 16, 1500, 64) in bf16 and fp32 and the VLM's
      causal (1, 64/8, 4096, 128)
+     the dense block's fused passes (add + RMSNorm, bias + RoPE, SwiGLU)
+     against their plain chains: the residual sum bit-exact, the rest within
+     1 ulp (bf16) / 4 ulps (fp32; the norm 32)
   3. timing at the main-path shapes (CUDA events), TFLOP/s and share of the
      bound of each kernel; flash also at the qwen prefill's own call, at
      the MLA prefill's (with the SDPA backends that take Dv != D) and at
      the Whisper encoder's, the Whisper decoder's and the VLM's calls; the
-     RG-LRU scan in fp32 and bf16 beside a same-bytes torch.add pass
+     RG-LRU scan in fp32 and bf16 beside a same-bytes torch.add pass; each
+     fused pass at prefill_batch32's (32, 1024) tokens against its bytes
+     bound and the plain chain it replaces
   4-6. qwen2.5-3b: prefill (launches, finite logits, profile with its count
-     of copy kernels), fp32
+     of copy kernels; the fused passes' launches per call, and every
+     kernel's launches with the plain chains and with the fused passes), fp32
      prefill-vs-decode consistency (bound 2e-3), serving 8 requests
   7-9. mamba2-130m: the same three
   10-12. recurrentgemma-9b: the same three (the fp32 check at depth 5)
@@ -170,8 +176,9 @@ from repro_torch.core.cost_model import (ANALYTIC_BATCH_MODEL, BatchCostModel,  
                                          GPU_HBM_BW as HBM_BYTES_PER_S,
                                          GPU_PEAK_FLOPS as PEAK_BF16_FLOPS)
 from repro_torch.data import DataConfig, batches_for_model, frontend_stub  # noqa: E402
-from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import fused as fu  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
@@ -256,6 +263,17 @@ KERNELS = {"flash_attention": fa.flash_attention, "ssd_scan": ss.ssd_scan,
 #: tensor-core variant runs three passes; its last, ssd_chunk_scan, once)
 KERNEL_SYMBOLS = {"flash_attention": ("flash_fwd",), "ssd_scan": ("ssd_fwd", "ssd_chunk_scan"),
                   "rglru_scan": ("rglru_fwd",)}
+#: the dense block's fused elementwise passes (``kernels/fused.py``), kept out
+#: of KERNELS: their counts are printed per prefill, not asserted per family
+FUSED = {"add_rms_norm": fu.add_rms_norm, "qkv_bias_rope": fu.qkv_bias_rope,
+         "swiglu": fu.swiglu}
+FUSED_SYMBOLS = {"add_rms_norm": "add_rms_norm_kernel", "qkv_bias_rope": "qkv_bias_rope_kernel",
+                 "swiglu": "swiglu_kernel"}
+#: the ops entry points that reach FUSED, which ``plain_chains`` sends to
+#: their plain versions
+FUSED_ENTRIES = ("rms_norm", "add_rms_norm", "qkv_bias_rope", "rope", "swiglu")
+#: prefill_batch32's calls at their longest: (32, 1024) tokens of qwen2.5-3b
+FUSED_TIMING = dict(rows=32 * 1024, d=2048, hq=16, hkv=2, hd=128, ff=11008)
 #: profiles of one call taken before one that lost kernel events is kept
 PROFILE_ATTEMPTS = 3
 #: the profiler ranges of the kernels' backward passes (their plain VJPs)
@@ -290,9 +308,51 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def read_fused() -> dict:
+    return {name: fn.launches for name, fn in FUSED.items()}
+
+
+@contextlib.contextmanager
+def plain_chains():
+    """The fused passes' entry points sent to their plain versions (every
+    other entry point as it is): the model as it ran before the fusion."""
+    saved = {name: getattr(ops, name) for name in FUSED_ENTRIES}
+    try:
+        for name, fn in saved.items():
+            setattr(ops, name, lambda *a, _fn=fn, **kw: _fn(*a, **{**kw, "impl": "torch"}))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def kernel_counts(fn) -> dict:
+    """{kernel name: launches} over one call of ``fn`` under the profiler."""
+    events, _ = _profile_once(fn)
+    return {e.key: e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def fused_launch_table(fn, label: str) -> dict:
+    """Kernel launches of one call of ``fn`` with the plain chains (before
+    the fusion) and with the fused passes (after), by kernel: the totals,
+    the fused kernels and every kernel whose count moved."""
+    with plain_chains():
+        before = kernel_counts(fn)
+    after = kernel_counts(fn)
+    moved = {k: (before.get(k, 0), after.get(k, 0)) for k in set(before) | set(after)
+             if before.get(k, 0) != after.get(k, 0)}
+    log(f"  launches of {label}, plain chains -> fused passes: "
+        f"{sum(before.values())} -> {sum(after.values())} kernels")
+    for k, (b, a) in sorted(moved.items(), key=lambda kv: -abs(kv[1][0] - kv[1][1])):
+        log(f"    {b:6d} -> {a:6d}  {k[:100]}")
+    return dict(before=sum(before.values()), after=sum(after.values()),
+                moved={k[:100]: v for k, v in moved.items()})
+
+
 def build_all() -> None:
-    """Build the three libraries at once: one nvcc per source, in threads."""
-    libs = {"flash_attention": fa._lib, "ssd_scan": ss._lib, "rglru_scan": rg._lib}
+    """Build the four libraries at once: one nvcc per source, in threads."""
+    libs = {"flash_attention": fa._lib, "ssd_scan": ss._lib, "rglru_scan": rg._lib,
+            "fused_elementwise": fu._lib}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(fn) for fn in libs.values()]:
@@ -609,6 +669,149 @@ def rglru_vs_plain():
     return results
 
 
+def ulps(got, want) -> int:
+    """The largest distance between got and want in units in the last place
+    of their dtype (sign and magnitude mapped to one integer line)."""
+    ity = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+    top = 1 << (8 * got.element_size() - 1)
+    a, b = (t.contiguous().view(ity).long() for t in (got, want))
+    a, b = (torch.where(t < 0, -(t + top), t) for t in (a, b))
+    return int((a - b).abs().max())
+
+
+def randn(seed: int, *shape, dtype=torch.bfloat16, scale: float = 1.0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (scale * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+
+
+def fused_cases():
+    """(kernel, case, kernel call, plain call) of each fused pass's cases:
+    qwen2.5-3b's shapes at the smoke's (2, 512) prefill in bf16 and fp32,
+    decode's S = 1 with (B, 1) int32 positions, rotary_pct 0.5, MLA's rope
+    slices, a row count no block divides, widths no 16-byte access divides,
+    with and without biases and residual, and operands read through row
+    strides."""
+    cases = []
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        x, r = randn(1, 2, 512, 2048, dtype=dt), randn(2, 2, 512, 2048, dtype=dt)
+        scale = randn(3, 2048, dtype=torch.float32, scale=0.1) + 1.0
+        x37, r37 = x.view(-1, 2048)[:37], r.view(-1, 2048)[:37]
+        xs = randn(4, 9, 2051, dtype=dt)[:, :2048]          # row stride d + 3
+        cases += [
+            ("add_rms_norm", f"(2,512,2048) + residual {tag}",
+             lambda x=x, r=r, sc=scale: fu.add_rms_norm(x, r, sc, 1e-6),
+             lambda x=x, r=r, sc=scale: ref.add_rms_norm(x, r, sc, 1e-6)),
+            ("add_rms_norm", f"(2,512,2048) no residual {tag}",
+             lambda x=x, sc=scale: (fu.add_rms_norm(x, None, sc, 1e-6),),
+             lambda x=x, sc=scale: (ref.rms_norm(x, sc, 1e-6),)),
+            ("add_rms_norm", f"37 rows + residual {tag}",
+             lambda x=x37, r=r37, sc=scale: fu.add_rms_norm(x, r, sc, 1e-6),
+             lambda x=x37, r=r37, sc=scale: ref.add_rms_norm(x, r, sc, 1e-6)),
+            ("add_rms_norm", f"9 rows at row stride 2051 {tag}",
+             lambda x=xs, sc=scale: (fu.add_rms_norm(x, None, sc, 1e-6),),
+             lambda x=xs, sc=scale: (ref.rms_norm(x, sc, 1e-6),)),
+        ]
+        for B, S, pct, bias, pos in (
+                (2, 512, 1.0, True, torch.arange(512, device="cuda")),
+                (4, 1, 1.0, True,
+                 torch.tensor(4093, dtype=torch.int32, device="cuda").reshape(1, 1).expand(4, 1)),
+                (2, 512, 0.5, False, torch.arange(512, device="cuda"))):
+            q, k, v = (randn(10 + i, B, S, n, 128, dtype=dt) for i, n in enumerate((16, 2, 2)))
+            bs = ([randn(20 + i, n * 128, dtype=dt, scale=0.5) for i, n in enumerate((16, 2, 2))]
+                  if bias else [None] * 3)
+            cases.append(("qkv_bias_rope", f"({B},{S},16/2/2,128) pct {pct} bias {bias} {tag}",
+                          lambda q=q, k=k, v=v, bs=bs, pos=pos, pct=pct:
+                          fu.qkv_bias_rope(q, k, v, *bs, pos, 1e6, pct),
+                          lambda q=q, k=k, v=v, bs=bs, pos=pos, pct=pct:
+                          ref.qkv_bias_rope(q, k, v, *bs, pos, 1e6, pct)))
+        qm, kv = randn(30, 1, 512, 16, 192, dtype=dt), randn(31, 1, 512, 576, dtype=dt)
+        pos = torch.arange(512, device="cuda")
+        for name, t in (("q", qm[..., 128:]), ("k", kv[..., 512:].reshape(1, 512, 1, 64))):
+            cases.append(("qkv_bias_rope", f"MLA rope slice of {name} {tuple(t.shape)} {tag}",
+                          lambda t=t: (ops.rope(t, pos, 1e4),),
+                          lambda t=t: (ref.rope(t, pos, 1e4),)))
+        g, u = randn(40, 2, 512, 11008, dtype=dt, scale=3.0), randn(41, 2, 512, 11008, dtype=dt)
+        gu = randn(42, 37, 2 * 11008, dtype=dt, scale=3.0)
+        g100, u100 = randn(43, 15, 100, dtype=dt, scale=3.0), randn(44, 15, 100, dtype=dt)
+        for name, a, b in (("(2,512,11008)", g, u), ("37 rows of a merged gate|up", gu[:, :11008],
+                                                     gu[:, 11008:]), ("(15,100)", g100, u100)):
+            cases.append(("swiglu", f"{name} {tag}", lambda a=a, b=b: (fu.swiglu(a, b),),
+                          lambda a=a, b=b: (ref.swiglu(a, b),)))
+    return cases
+
+
+def fused_vs_plain() -> dict:
+    """Each fused pass against its plain chain: the residual sum bit-exact,
+    every other output within 1 ulp in bf16 and 4 in fp32, the norm's 32 (the
+    order of its fp32 mean of squares and a libm call's last bit are all
+    that may differ)."""
+    out = {name: [] for name in FUSED}
+    for kernel, name, run, plain in fused_cases():
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        worst = max(ulps(a, b) for a, b in zip(got, want))
+        equal = sum(int((a == b).sum()) for a, b in zip(got, want)) / sum(
+            b.numel() for b in want)
+        exact = kernel != "add_rms_norm" or len(got) == 1 or torch.equal(got[0], want[0])
+        limit = 1 if got[0].dtype == torch.bfloat16 else (32 if kernel == "add_rms_norm" else 4)
+        log(f"  {kernel} {name}: {worst} ulps at most, {100 * equal:.4f}% of values equal"
+            + ("; residual sum bit-exact" if len(got) == 2 and kernel == "add_rms_norm" else "")
+            + (" ok" if worst <= limit and exact else " FAIL"))
+        assert worst <= limit and exact, f"{kernel} disagrees: {name}"
+        out[kernel].append(dict(case=name, max_ulps=worst, equal_share=equal))
+    return out
+
+
+def fused_timing(device_line: str) -> dict:
+    """Each fused pass at prefill_batch32's longest call, (32, 1024) tokens of
+    qwen2.5-3b in bf16: CUDA-event and profiler device time, the bytes bound
+    at HBM_BYTES_PER_S (each input read once, each output written once), and
+    the plain chain it replaces."""
+    m = FUSED_TIMING
+    rows, d = m["rows"], m["d"]
+    x, r = randn(50, rows, d), randn(51, rows, d)
+    scale = randn(52, d, dtype=torch.float32, scale=0.1) + 1.0
+    q = randn(53, 32, 1024, m["hq"], m["hd"])
+    k, v = (randn(54 + i, 32, 1024, m["hkv"], m["hd"]) for i in range(2))
+    bs = [randn(60 + i, n * m["hd"]) for i, n in enumerate((m["hq"], m["hkv"], m["hkv"]))]
+    pos = torch.arange(1024, device="cuda")
+    calls = {
+        "rms_norm": (lambda: fu.add_rms_norm(x, None, scale, 1e-6),
+                     lambda: ref.rms_norm(x, scale, 1e-6), nbytes(x) * 2),
+        "add_rms_norm": (lambda: fu.add_rms_norm(x, r, scale, 1e-6),
+                         lambda: ref.add_rms_norm(x, r, scale, 1e-6), nbytes(x) * 4),
+        "qkv_bias_rope": (lambda: fu.qkv_bias_rope(q, k, v, *bs, pos, 1e6),
+                          lambda: ref.qkv_bias_rope(q, k, v, *bs, pos, 1e6),
+                          2 * nbytes(q, k, v) + nbytes(*bs)),
+    }
+    out = {}
+    for name, (run, plain, nb) in calls.items():
+        out[name] = fused_time_one(name, run, plain, nb, device_line)
+    del x, r, q, k, v
+    torch.cuda.empty_cache()
+    gate, up = randn(70, rows, m["ff"], scale=3.0), randn(71, rows, m["ff"])
+    out["swiglu"] = fused_time_one("swiglu", lambda: fu.swiglu(gate, up),
+                                   lambda: ref.swiglu(gate, up), nbytes(gate) * 3, device_line)
+    del gate, up
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_time_one(name: str, run, plain, nb: int, device_line: str) -> dict:
+    kernel_ms = cuda_ms(run, iters=20)
+    dev_ms, how = device_time(run)
+    plain_ms = cuda_ms(plain, iters=10)
+    plain_dev_ms, plain_how = device_time(plain)
+    bound_ms = nb / HBM_BYTES_PER_S * 1e3
+    log(f"  [{device_line}] {name} bf16 at (32, 1024) tokens: kernel {kernel_ms:.4f} ms "
+        f"(device {dev_ms:.4f} ms, {how}), plain chain {plain_ms:.4f} ms (device "
+        f"{plain_dev_ms:.4f} ms, {plain_how}), bound {bound_ms:.4f} ms (bytes: "
+        f"{nb / 1e6:.2f} MB); {nb / dev_ms / 1e6:.1f} GB/s = {100 * bound_ms / dev_ms:.2f}% of "
+        f"the bytes bound; plain / kernel {plain_dev_ms / dev_ms:.2f}")
+    return dict(ms=kernel_ms, device_ms=dev_ms, plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
+                bound_ms=bound_ms, bound_by="bytes", bytes=nb)
+
+
 def bound(flops: float, nbytes: float, peak_flops: float):
     """(bound ms, what bounds it): the larger of operations over the peak for
     their type and bytes over the memory rate."""
@@ -886,6 +1089,7 @@ def phase_prefill(model, params, batch: int, seq: int, device_line: str) -> dict
                            dtype=torch.int32)
     inputs = {"tokens": tokens, **memory_inputs(cfg, batch)}
     reset_counts()
+    fused_before = read_fused()
     times = []
     with torch.no_grad():
         for _ in range(2):
@@ -894,6 +1098,7 @@ def phase_prefill(model, params, batch: int, seq: int, device_line: str) -> dict
             logits, _, cache = model.forward(params, inputs, mode="prefill")
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+    fused_per_call = {k: (n - fused_before[k]) // 2 for k, n in read_fused().items()}
     launches = read_counts()
     variants = read_variants()
     expected = expected_launches(model)
@@ -910,10 +1115,14 @@ def phase_prefill(model, params, batch: int, seq: int, device_line: str) -> dict
         f"{ {k: n // 2 for k, n in launches.items()} }, by variant over both calls "
         f"{variants}; cache {shapes}")
     log(f"  [{device_line}] wall {times[0]:.4f} s first call, {times[1]:.4f} s second")
+    log(f"  fused passes per call {fused_per_call}")
     with torch.no_grad():
         profile_call(lambda: model.forward(params, inputs, mode="prefill"),
                      f"one prefill ({batch}, {seq})", device_line)
-    return dict(launches=launches, variants=variants, wall_s=times)
+        table = fused_launch_table(lambda: model.forward(params, inputs, mode="prefill"),
+                                   f"one prefill ({batch}, {seq})")
+    return dict(launches=launches, variants=variants, wall_s=times,
+                fused_launches=fused_per_call, launches_before_after=table)
 
 
 def expected_launches(model) -> dict:
@@ -1045,9 +1254,10 @@ def profile_call(fn, label: str, device_line: str) -> dict:
     step counts the steps it takes)."""
     ranges = set(BACKWARD_RANGES.values())
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        before = read_counts()
+        before, fused_before = read_counts(), read_fused()
         events, wall_us = _profile_once(fn)
         launched = {k: n - before[k] for k, n in read_counts().items()}
+        fused_launched = {k: n - fused_before[k] for k, n in read_fused().items()}
         # the backward ranges also appear on the device's timeline as annotations,
         # which are spans, not kernels: they stay out of the busy time
         kernels = [e for e in events
@@ -1065,9 +1275,12 @@ def profile_call(fn, label: str, device_line: str) -> dict:
         return {}
     verdict = {True: "whole", None: "not checkable (no launch of the repo's kernels)",
                False: f"whole: false after {attempt} attempts (a lower bound)"}[whole]
+    fused_kept = {name: sum(e.count for e in kernels if FUSED_SYMBOLS[name] in e.key)
+                  for name in FUSED}
     log(f"  profile [{device_line}] {label} under the profiler: wall {wall_us / 1e3:.3f} ms, "
         f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% of wall), "
-        f"{sum(e.count for e in kernels)} kernel launches; {verdict}")
+        f"{sum(e.count for e in kernels)} kernel launches; {verdict}; fused passes: kernel "
+        f"events {fused_kept}, wrapper launches {fused_launched}")
     # copies (layout changes such as .contiguous()): PyTorch's copy kernels
     copies = [e for e in kernels if "copy" in e.key.lower()]
     log(f"    copy kernels: {sum(e.count for e in copies)} launches, "
@@ -1080,12 +1293,14 @@ def profile_call(fn, label: str, device_line: str) -> dict:
         f"{sum(e.self_device_time_total for e in layout) / 1e3:.3f} ms")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     # the eight largest, and this repo's kernels wherever they rank
-    ours = [e for e in ranked[8:] if any(k in e.key for k in ("flash_fwd", "ssd_", "rglru_fwd"))]
+    ours = [e for e in ranked[8:] if any(k in e.key for k in ("flash_fwd", "ssd_", "rglru_fwd",
+                                                               *FUSED_SYMBOLS.values()))]
     for e in ranked[:8] + ours:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {100 * e.self_device_time_total / busy_us:5.1f}%"
             f"  x{e.count:<4d} {e.key[:90]}")
     out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, whole=whole, attempts=attempt,
-               kept_launches=kept, wrapper_launches=launched,
+               kept_launches=kept, wrapper_launches=launched, fused_kept=fused_kept,
+               fused_launches=fused_launched,
                launches=sum(e.count for e in kernels),
                copy_launches=sum(e.count for e in copies),
                layout_launches=sum(e.count for e in layout), backward_ms={})
@@ -1915,10 +2130,12 @@ def main() -> int:
     log("phase 2: kernels vs plain versions on the card")
     cases = {"flash_attention": flash_vs_plain(), "ssd_scan": ssd_vs_plain(),
              "rglru_scan": rglru_vs_plain()}
+    fused_cases_out = fused_vs_plain()
 
     log("phase 3: timing at the main-path shapes")
     timing = {"flash_attention": flash_timing(device_line), "ssd_scan": ssd_timing(device_line),
               "rglru_scan": rglru_timing(device_line)}
+    fused_times = fused_timing(device_line)
 
     # each path: its counts are zeroed just before its prefill and read after
     paths = {
@@ -2029,6 +2246,10 @@ def main() -> int:
     print(json.dumps({"megatron_sp": sp, "moe_mesh": moe_mesh, "device": device_line}))
     print(json.dumps({"dryrun": dryrun, "counts": counts, "device": device_line}))
     print(json.dumps({"kernels": kernels}))
+    fused_by_path = {p: r["fused_launches"] for p, r in paths.items() if "fused_launches" in r}
+    print(json.dumps({"fused": {"cases": fused_cases_out, "timing": fused_times,
+                                "launches_per_prefill_call": fused_by_path,
+                                "device": device_line}}))
     print(device_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,8 @@
     a CPU tensor runs the kernel's plain version. No path falls back to
     another.
   - "torch": the plain PyTorch path on any device (q-chunked attention,
-    chunked SSD, log-depth RG-LRU scan); the counterpart of the reference's
-    "xla".
+    chunked SSD, log-depth RG-LRU scan, the dense block's elementwise chains
+    op by op); the counterpart of the reference's "xla".
   - "cuda": the Hopper kernel; raises on a tensor that is not on a CUDA
     device.
 
@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import fused, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
@@ -169,3 +169,61 @@ def rglru(a: torch.Tensor, b: torch.Tensor, *, chunk: int = 256,
         return ref.rglru_ref(a, b)
     _check_kernel_impl(impl, "rglru", a)
     return rglru_scan(a.contiguous(), b.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the dense block's elementwise chains
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, *,
+             impl: Optional[str] = None) -> torch.Tensor:
+    """RMSNorm over the last dimension (fp32 inside, output in x's dtype)."""
+    impl = _resolve(impl)
+    if impl == "torch":
+        return ref.rms_norm(x, scale, eps)
+    _check_kernel_impl(impl, "rms_norm", x)
+    return fused.add_rms_norm(x, None, scale, eps)
+
+
+def add_rms_norm(x: torch.Tensor, residual: torch.Tensor, scale: torch.Tensor, eps: float, *,
+                 impl: Optional[str] = None):
+    """(s, RMSNorm of s) for the residual sum s = x + residual, in one pass."""
+    impl = _resolve(impl)
+    if impl == "torch":
+        return ref.add_rms_norm(x, residual, scale, eps)
+    _check_kernel_impl(impl, "add_rms_norm", x)
+    return fused.add_rms_norm(x, residual, scale, eps)
+
+
+def qkv_bias_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  b_q: Optional[torch.Tensor], b_k: Optional[torch.Tensor],
+                  b_v: Optional[torch.Tensor], positions: torch.Tensor, theta: float,
+                  pct: float = 1.0, *, impl: Optional[str] = None):
+    """The attention's (B, S, H, D) projections plus their biases ((H * D,)
+    or None), q and k rotated: (q, k, v) in one pass."""
+    impl = _resolve(impl)
+    if impl == "torch":
+        return ref.qkv_bias_rope(q, k, v, b_q, b_k, b_v, positions, theta, pct)
+    _check_kernel_impl(impl, "qkv_bias_rope", q)
+    return fused.qkv_bias_rope(q, k, v, b_q, b_k, b_v, positions, theta, pct)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float, pct: float = 1.0, *,
+         impl: Optional[str] = None) -> torch.Tensor:
+    """Rotary embedding of x's first ``pct`` of dims: on the card x is
+    (B, S, H, D), any view with unit innermost stride (the plain version
+    also takes (..., S, D))."""
+    impl = _resolve(impl)
+    if impl == "torch":
+        return ref.rope(x, positions, theta, pct)
+    _check_kernel_impl(impl, "rope", x)
+    return fused.qkv_bias_rope(x, None, None, None, None, None, positions, theta, pct)[0]
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor, *, impl: Optional[str] = None) -> torch.Tensor:
+    """``up * silu(gate)`` in one pass."""
+    impl = _resolve(impl)
+    if impl == "torch":
+        return ref.swiglu(gate, up)
+    _check_kernel_impl(impl, "swiglu", gate)
+    return fused.swiglu(gate, up)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -213,3 +214,68 @@ def rglru_sequential(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         h = ad[:, t] * h + bd[:, t]
         out[:, t] = h
     return out
+
+
+# ---------------------------------------------------------------------------
+# the dense block's elementwise chains (``kernels/fused.py`` fuses each)
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm over the last dimension in fp32, output in x's dtype."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale
+    return out.to(x.dtype)
+
+
+def add_rms_norm(x: torch.Tensor, residual: torch.Tensor, scale: torch.Tensor,
+                 eps: float) -> tuple:
+    """(s, RMSNorm of s) for the residual sum s = x + residual."""
+    s = x + residual
+    return s, rms_norm(s, scale, eps)
+
+
+def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+
+
+def rope_dims(d: int, pct: float) -> int:
+    """The rotated leading dims of a head of ``d``: ``pct * d``, made even."""
+    d_rot = int(d * pct)
+    return d_rot - d_rot % 2
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         pct: float = 1.0) -> torch.Tensor:
+    """x: (..., S, H, D) or (..., S, D); positions: (..., S) or (S,).
+
+    ``pct`` < 1 applies rotary to the leading ``pct * D`` dims only
+    (ChatGLM's 2d/partial rotary).
+    """
+    if theta <= 0:
+        return x
+    d_rot = rope_dims(x.shape[-1], pct)
+    xr, xp = x[..., :d_rot], x[..., d_rot:]
+    freqs = rope_freqs(d_rot, theta, x.device)                # (d_rot/2,)
+    ang = positions[..., None].float() * freqs                 # (..., S, d_rot/2)
+    if x.dim() == 4:  # (..., S, H, D): insert the head axis for broadcasting
+        ang = ang.unsqueeze(-2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = xr[..., : d_rot // 2], xr[..., d_rot // 2:]
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rot.to(x.dtype), xp], dim=-1)
+
+
+def qkv_bias_rope(q, k, v, b_q, b_k, b_v, positions, theta: float, pct: float = 1.0):
+    """The attention's projections q, k, v (B, S, H, D) plus their biases
+    ((H * D,) each, or None), then q and k rotated (:func:`rope`); an absent
+    (None) k or v comes back as None."""
+    q, k, v = (t if b is None else t + b.reshape(t.shape[-2:])
+               for t, b in ((q, b_q), (k, b_k), (v, b_v)))
+    return (rope(q, positions, theta, pct),
+            None if k is None else rope(k, positions, theta, pct), v)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """The SiLU-gated product ``up * silu(gate)``."""
+    return up * F.silu(gate)

@@ -9,7 +9,10 @@ without logical rules they are no-ops, and under rules on a mesh they
 redistribute a DTensor (``utils/sharding.py``).
 
 The models reach the kernels' entry points (``kernels/ops.py``, a device
-dispatcher) through ``attention``, ``decode_attention`` and ``ssd`` here.
+dispatcher) through ``attention``, ``decode_attention`` and ``ssd`` here, and
+through the norms, the rotary embedding, the attention's projections and the
+SiLU MLP, whose elementwise chains ``ops`` fuses into single passes on the
+card (on DTensors under logical rules those run their plain versions).
 Under logical rules on a mesh these run DTensors rank by rank (a
 ``shard_map`` over the rules' axes), the split GSPMD makes of the
 reference's ops: ``attention`` and ``ssd`` on each rank's batch rows and
@@ -162,46 +165,36 @@ def init_norm(b: ParamBuilder, name: str, dim: int, kind: str):
 
 
 def apply_norm(p, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
-    xf = x.float()
+    """RMSNorm through ``ops.rms_norm`` (its plain version on DTensors under
+    logical rules); LayerNorm in plain PyTorch."""
     if kind == "rmsnorm":
-        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-        out = xf * torch.rsqrt(var + eps) * p["scale"]
-    else:
-        mu = torch.mean(xf, dim=-1, keepdim=True)
-        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
-        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+        return (ref.rms_norm if on_mesh(x) else ops.rms_norm)(x, p["scale"], eps)
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     return out.to(x.dtype)
+
+
+def add_norm(p, x: torch.Tensor, r: torch.Tensor, kind: str, eps: float) -> tuple:
+    """(x + r, its norm): one pass for RMSNorm of two tensors of one dtype
+    off the mesh (``ops.add_rms_norm``)."""
+    if kind == "rmsnorm" and not on_mesh(x) and x.dtype == r.dtype:
+        return ops.add_rms_norm(x, r, p["scale"], eps)
+    x = x + r
+    return x, apply_norm(p, x, kind, eps)
 
 
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
 
-def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
-
-
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                pct: float = 1.0) -> torch.Tensor:
-    """x: (..., S, H, D) or (..., S, D); positions: (..., S) or (S,).
-
-    ``pct`` < 1 applies rotary to the leading ``pct * D`` dims only
-    (ChatGLM's 2d/partial rotary).
-    """
-    if theta <= 0:
-        return x
-    d = x.shape[-1]
-    d_rot = int(d * pct)
-    d_rot -= d_rot % 2
-    xr, xp = x[..., :d_rot], x[..., d_rot:]
-    freqs = rope_freqs(d_rot, theta, x.device)                # (d_rot/2,)
-    ang = positions[..., None].float() * freqs                 # (..., S, d_rot/2)
-    if x.dim() == 4:  # (..., S, H, D): insert the head axis for broadcasting
-        ang = ang.unsqueeze(-2)
-    cos, sin = torch.cos(ang), torch.sin(ang)
-    x1, x2 = xr[..., : d_rot // 2], xr[..., d_rot // 2:]
-    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return torch.cat([rot.to(x.dtype), xp], dim=-1)
+    """``ops.rope`` (``ref.rope`` on DTensors under logical rules): x
+    (..., S, H, D) or (..., S, D) rotated over its leading ``pct * D`` dims
+    (ChatGLM's 2d/partial rotary); positions (..., S) or (S,)."""
+    return (ref.rope if on_mesh(x) else ops.rope)(x, positions, theta, pct)
 
 
 # ---------------------------------------------------------------------------
@@ -224,9 +217,11 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.act in ("silu", "geglu"):
-        act = F.silu if cfg.act == "silu" else _gelu
-        h = (x @ p["w_up"]) * act(x @ p["w_gate"])
+    if cfg.act == "silu":
+        up = x @ p["w_up"]
+        h = (ref.swiglu if on_mesh(x) else ops.swiglu)(x @ p["w_gate"], up)
+    elif cfg.act == "geglu":
+        h = (x @ p["w_up"]) * _gelu(x @ p["w_gate"])
     else:
         h = _gelu(x @ p["w_in"])
     h = shard(h, "batch", None, "ff")
@@ -253,17 +248,25 @@ def init_attention(b: ParamBuilder, name: str, cfg: ModelConfig,
         sub.param("b_v", (nkv * hd,), ("kv_heads",), init="zeros")
 
 
-def _project_qkv(p, x, cfg: ModelConfig, nh: int, nkv: int):
+def _project_qkv(p, x, cfg: ModelConfig, nh: int, nkv: int, positions: torch.Tensor):
+    """q, k, v (B, S, H, hd) with their biases, q and k rotated: off the
+    mesh in one pass (``ops.qkv_bias_rope``)."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
     q = x @ p["w_q"]
     k = x @ p["w_k"]
     v = x @ p["w_v"]
+    if not on_mesh(x):
+        return ops.qkv_bias_rope(q.view(B, S, nh, hd), k.view(B, S, nkv, hd),
+                                 v.view(B, S, nkv, hd), p.get("b_q"), p.get("b_k"),
+                                 p.get("b_v"), positions, cfg.rope_theta, cfg.rotary_pct)
     if "b_q" in p:
         q = q + p["b_q"]
         k = k + p["b_k"]
         v = v + p["b_v"]
-    return split_heads(q, nh, hd), split_heads(k, nkv, hd), split_heads(v, nkv, hd)
+    q, k, v = split_heads(q, nh, hd), split_heads(k, nkv, hd), split_heads(v, nkv, hd)
+    return (ref.rope(q, positions, cfg.rope_theta, cfg.rotary_pct),
+            ref.rope(k, positions, cfg.rope_theta, cfg.rotary_pct), v)
 
 
 def _whole_unless_heads_divide(t: torch.Tensor, n: int, logical: str) -> torch.Tensor:
@@ -307,9 +310,7 @@ def apply_attention(
     """Full-sequence self attention (train / prefill). Returns (out, (k, v))."""
     nh = num_heads or cfg.num_heads
     nkv = num_kv or cfg.num_kv_heads
-    q, k, v = _project_qkv(p, x, cfg, nh, nkv)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+    q, k, v = _project_qkv(p, x, cfg, nh, nkv, positions)
     q = shard(q, "batch", None, "heads", None)
     qh = q.transpose(1, 2)
     kh = k.transpose(1, 2)
@@ -358,10 +359,8 @@ def apply_attention_decode(
     B = x.shape[0]
     hd = cfg.head_dim_
     s_cache = cache_k.shape[2]
-    q, k, v = _project_qkv(p, x, cfg, nh, nkv)
     posv = pos.reshape(1, 1).expand(B, 1)
-    q = apply_rope(q, posv, cfg.rope_theta, cfg.rotary_pct)
-    k = apply_rope(k, posv, cfg.rope_theta, cfg.rotary_pct)
+    q, k, v = _project_qkv(p, x, cfg, nh, nkv, posv)
     qh = q.transpose(1, 2)                              # (B, H, 1, hd)
     kh = k.transpose(1, 2)                              # (B, Hkv, 1, hd)
     vh = v.transpose(1, 2)

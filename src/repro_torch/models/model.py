@@ -278,8 +278,8 @@ class Model:
                                              window=window)
         # under sequence-parallel rules this asks for a reduce-scatter at the
         # out-projection instead of all-reduce + re-shard (no-op otherwise)
-        x = x + shard(attn_out, "batch", "seq", None)
-        h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+        x, h = L.add_norm(p["ln2"], x, shard(attn_out, "batch", "seq", None), cfg.norm,
+                          cfg.norm_eps)
         if use_moe:
             ffn_out, aux = MOE.apply_moe(p["ffn"], h, cfg, impl=self.moe_impl)
         else:
@@ -314,8 +314,7 @@ class Model:
             out, kv = L.apply_attention(p["attn"], h, cfg, positions, causal=True,
                                         window=cfg.local_window)
             st = self._clip_window_kv(kv, x.shape[1]) if collect else None
-        x = x + out
-        h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+        x, h = L.add_norm(p["ln2"], x, out, cfg.norm, cfg.norm_eps)
         return x + L.apply_mlp(p["ffn"], h, cfg), (st if collect else None)
 
     def _audio_block(self, p, x, positions, memory, *, collect: bool):
@@ -348,8 +347,8 @@ class Model:
         then the MLP residual."""
         cfg = self.cfg
         h = L.apply_norm(p[norm], x, cfg.norm, cfg.norm_eps)
-        x = x + L.apply_cross_attention(p["xattn"], h, xk, xv, cfg)
-        h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+        x, h = L.add_norm(p["ln2"], x, L.apply_cross_attention(p["xattn"], h, xk, xv, cfg),
+                          cfg.norm, cfg.norm_eps)
         return x + L.apply_mlp(p["ffn"], h, cfg)
 
     def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
@@ -649,8 +648,7 @@ class Model:
                     out, nk, nv = L.apply_attention_decode(p["attn"], h, cfg, c[0], c[1], pos,
                                                            window=window)
                     nc = (nk, nv)
-                x = x + out
-                h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+                x, h = L.add_norm(p["ln2"], x, out, cfg.norm, cfg.norm_eps)
                 if use_moe:
                     f, _ = MOE.apply_moe(p["ffn"], h, cfg, impl=self.moe_impl)
                 else:
@@ -746,8 +744,7 @@ class Model:
             out, nk, nv = L.apply_attention_decode(p["attn"], h, cfg, c["k"], c["v"], pos,
                                                    window=cfg.local_window)
             nc = {"k": nk, "v": nv}
-        x = x + out
-        h = L.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+        x, h = L.add_norm(p["ln2"], x, out, cfg.norm, cfg.norm_eps)
         return x + L.apply_mlp(p["ffn"], h, cfg), nc
 
     def _hybrid_decode(self, params, x, cache, new_cache, pos):

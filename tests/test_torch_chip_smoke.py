@@ -89,3 +89,22 @@ def test_run_concurrently_runs_at_once_and_fails_on_any_exit(smoke, capsys):
     hang = [smoke.sys.executable, "-c", "import time; time.sleep(60)"]
     with pytest.raises(RuntimeError, match="hang: killed at the time limit"):
         smoke.run_concurrently({"hang": hang}, timeout=1)
+
+
+def test_plain_chains_sends_the_fused_entries_to_their_plain_versions(smoke):
+    """Inside ``plain_chains`` each fused pass's entry point runs its plain
+    version whatever ``impl`` it is given (on the CPU, "cuda" would raise);
+    outside, the entry points are the ones it found."""
+    x = torch.randn(2, 3, 8)
+    scale = torch.ones(8)
+    found = {name: getattr(smoke.ops, name) for name in smoke.FUSED_ENTRIES}
+    with smoke.plain_chains():
+        h = smoke.ops.rms_norm(x, scale, 1e-6, impl="cuda")
+        s, h2 = smoke.ops.add_rms_norm(x, x, scale, 1e-6, impl="cuda")
+        g = smoke.ops.swiglu(x, x, impl="cuda")
+    assert torch.equal(h, smoke.ref.rms_norm(x, scale, 1e-6))
+    assert torch.equal(s, x + x) and torch.equal(h2, smoke.ref.rms_norm(x + x, scale, 1e-6))
+    assert torch.equal(g, smoke.ref.swiglu(x, x))
+    assert {name: getattr(smoke.ops, name) for name in smoke.FUSED_ENTRIES} == found
+    with pytest.raises(ValueError, match="CUDA"):
+        smoke.ops.rms_norm(x, scale, 1e-6, impl="cuda")
